@@ -1,0 +1,106 @@
+"""The coarse-to-fine pyramid driver.
+
+Every multiscale method in the reference follows the same shape
+(e.g. Dual_TVL1_optic_flow_multiscale, reference src/tvl1flow.cpp:219-328):
+
+  1. jointly normalize the inputs to [0, 255]
+  2. presmooth with sigma = 0.8
+  3. build a Gaussian pyramid with zoom_out (factor in (0,1))
+  4. solve coarse -> fine; after each scale, bicubic-upsample the flow
+     to the next finer size and multiply by 1/zfactor
+
+The scale loop is host-side Python: the levels have different shapes,
+and each level's solver is a few launches per warp.
+"""
+
+import torch
+
+from tpuflow_torch.ops.gaussian import gaussian
+from tpuflow_torch.ops.normalize import normalize_joint
+from tpuflow_torch.ops.pyramid import pyramid_sizes, zoom_in, zoom_out
+from tpuflow_torch.utils.trace import trace_scope
+
+PRESMOOTHING_SIGMA = 0.8  # reference src/tvl1flow.cpp:23
+
+
+def build_pyramid(images, nscales, zfactor, presmooth=PRESMOOTHING_SIGMA,
+                  normalize=True):
+    """Normalize + presmooth + pyramid for a tuple of same-shape images.
+
+    Returns (levels, sizes): `levels[s]` is a tuple of images at scale s
+    (finest first), `sizes[s]` the (nx, ny) of that scale."""
+    if normalize:
+        images = normalize_joint(*images)
+    if presmooth:
+        images = tuple(gaussian(im, presmooth) for im in images)
+    ny, nx = images[0].shape[-2:]
+    sizes = pyramid_sizes(nx, ny, zfactor, nscales)
+    levels = [images]
+    for s in range(1, nscales):
+        levels.append(tuple(zoom_out(im, zfactor, out_size=sizes[s])
+                            for im in levels[-1]))
+    return levels, sizes
+
+
+def upsample_flow(u1, u2, out_size, zfactor):
+    """Flow upsample between pyramid levels: bicubic zoom + 1/zfactor
+    magnitude rescale (reference src/tvl1flow.cpp:302-309)."""
+    inv = 1.0 / zfactor
+    return zoom_in(u1, out_size) * inv, zoom_in(u2, out_size) * inv
+
+
+def default_upsample_state(state, out_size, zfactor):
+    """Bicubic flow upsample of the u1/u2 keys; every other key passes
+    through unchanged."""
+    u1, u2 = upsample_flow(state["u1"], state["u2"], out_size, zfactor)
+    return dict(state, u1=u1, u2=u2)
+
+
+def run_pyramid_state(images, nscales, zfactor, solve_scale, state_init,
+                      presmooth=PRESMOOTHING_SIGMA, preprocess="normalize",
+                      upsample_state=default_upsample_state,
+                      level_callback=None, resume=None, trace_name=None):
+    """Coarse-to-fine driver over a dict flow state.
+
+      preprocess    "normalize" = joint [0,255] (image_normalization_2,
+                    reference src/utils.cpp:283-326), None = raw, or a
+                    callable(images) -> images for custom schemes
+      state_init    fn(size=(nx,ny), dtype) -> dict at the coarsest size
+      solve_scale   fn(images_at_scale, state, scale=s) -> state
+      upsample_state  fn(state, out_size, zfactor) -> state one level up
+      level_callback  fn(scale, state_dict) after each solved level
+      resume        (scale, state_dict): restart below `scale` from its
+                    already-solved state; floating fields take the
+                    images' dtype, integer fields stay integer
+    """
+    if callable(preprocess):
+        images = preprocess(images)
+        normalize = False
+    else:
+        normalize = preprocess == "normalize"
+    levels, sizes = build_pyramid(images, nscales, zfactor, presmooth,
+                                  normalize)
+    dtype = images[0].dtype
+    device = images[0].device
+    if resume is not None:
+        start, state = resume
+        state = {k: _on(v, dtype, device) for k, v in state.items()}
+        if start > 0:
+            state = upsample_state(state, sizes[start - 1], zfactor)
+        start -= 1
+    else:
+        state = state_init(sizes[-1], dtype)
+        start = nscales - 1
+    for s in range(start, -1, -1):
+        with trace_scope(f"{trace_name or 'pyramid'}/level_{s}", device):
+            state = solve_scale(levels[s], state, scale=s)
+        if level_callback is not None:
+            level_callback(s, state)
+        if s > 0:
+            state = upsample_state(state, sizes[s - 1], zfactor)
+    return state
+
+
+def _on(value, dtype, device):
+    t = torch.as_tensor(value, device=device)
+    return t.to(dtype) if t.is_floating_point() else t

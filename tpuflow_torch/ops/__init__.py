@@ -1,0 +1,1 @@
+"""Tensor operators and the hand-written kernels' wrappers."""

@@ -1,0 +1,56 @@
+"""Finite-difference stencils with the reference's boundary rules.
+
+  * `centered_gradient` — central differences, one-sided at the borders
+    (clamp-pad; reference src/operators.cpp:335-406)
+  * `forward_gradient`  — forward differences, zero at the last row/col
+    (reference src/operators.cpp:86-125)
+  * `divergence`        — backward differences, the adjoint: the first
+    row/col uses +v, the last row/col uses -v[previous]
+    (reference src/operators.cpp:35-78, Chambolle's discretization)
+
+All take (H, W) or (..., H, W) tensors and return the same shape/dtype.
+"""
+
+import torch
+
+
+def _shift_clamp(a, off, dim):
+    """`a` at index i+off along `dim`, edge-clamped (off is +-1)."""
+    n = a.shape[dim]
+    if off == 1:
+        return torch.cat([a.narrow(dim, 1, n - 1), a.narrow(dim, n - 1, 1)],
+                         dim=dim)
+    return torch.cat([a.narrow(dim, 0, 1), a.narrow(dim, 0, n - 1)], dim=dim)
+
+
+def centered_gradient(I):
+    """Central-difference gradient (dx, dy), one-sided at the borders:
+    dx = 0.5*(I[:, j+1] - I[:, j-1]) with j+-1 clamped to the image."""
+    dx = 0.5 * (_shift_clamp(I, 1, -1) - _shift_clamp(I, -1, -1))
+    dy = 0.5 * (_shift_clamp(I, 1, -2) - _shift_clamp(I, -1, -2))
+    return dx, dy
+
+
+def forward_gradient(f):
+    """Forward-difference gradient (fx, fy); zero at the last col/row."""
+    fx = torch.cat([f[..., :, 1:] - f[..., :, :-1],
+                    torch.zeros_like(f[..., :, :1])], dim=-1)
+    fy = torch.cat([f[..., 1:, :] - f[..., :-1, :],
+                    torch.zeros_like(f[..., :1, :])], dim=-2)
+    return fx, fy
+
+
+def divergence(v1, v2):
+    """Backward-difference divergence (adjoint of `forward_gradient`).
+
+    The last column of v1 (last row of v2) never contributes; the
+    first column (row) uses +v."""
+    a = v1.clone()
+    a[..., :, -1] = 0
+    div_x = a - torch.cat([torch.zeros_like(a[..., :, :1]), a[..., :, :-1]],
+                          dim=-1)
+    b = v2.clone()
+    b[..., -1, :] = 0
+    div_y = b - torch.cat([torch.zeros_like(b[..., :1, :]), b[..., :-1, :]],
+                          dim=-2)
+    return div_x + div_y

@@ -1,0 +1,140 @@
+"""Fused bounded bicubic warp + TV-L1 constants: kernel and plain version.
+
+Counterpart of tpuflow/ops/warp_pallas.py (`warp_const_pallas_batched`,
+mode "tvl1").  `warp_const_batched` warps (I1, I1x, I1y) by the current
+flow and assembles the per-warp constants of the TV-L1 fixed point
+
+    (I1wx, I1wy, rho_c = I1w - I1wx*u - I1wy*v - I0, grad = I1wx^2 + I1wy^2)
+
+in one pass (reference src/tvl1flow.cpp:94-109).
+
+The function is the EXACT bounded bicubic warp: the 16-tap Keys cell at
+the floor anchor x0 = floor(j + u), y0 = floor(i + v); a pixel is out of
+domain when x+u < 1, x0 > nx-3, y+v < 1 or y0 > ny-3, or when
+|x0 - j| > dmax or |y0 - i| > dmax (the strict displacement bound); the
+warped planes are 0 there, so rho_c = -I0 and grad = 0.  The exact
+gather of `tpuflow_torch.ops.interp` anchors at trunc instead; the two
+differ only for negative coordinates, which are out of domain anyway.
+
+The TPU kernel approximates this function with at most two
+tile-constant residual windows and flags the tiles where some pixel's
+displacement fell outside both (those pixels degrade to 0 for that
+warp).  On tiles it does not flag the two are identical.  A gather is
+cheap on the GPU, so the CUDA kernel (csrc/warp_const.cu) computes every
+pixel exactly and never degrades one: the overflow count it returns is
+always 0, kept so that `with_stats` reports the same keys as the JAX
+engine.
+
+On a CUDA tensor the wrapper launches the kernel (or raises); on a CPU
+tensor it runs `warp_const_plain`, the same arithmetic in PyTorch.
+"""
+
+import ctypes
+
+import torch
+
+from tpuflow_torch import _build
+
+_SIGNATURES = {
+    "warp_const_tvl1": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p],
+}
+
+
+def _keys(t):
+    """Keys cell weights per tap (reference src/bicubic_interpolation.cpp:108-123)."""
+    t2 = t * t
+    t3 = t2 * t
+    return (0.5 * (-t3 + 2 * t2 - t),
+            0.5 * (3 * t3 - 5 * t2 + 2),
+            0.5 * (-3 * t3 + 4 * t2 + t),
+            0.5 * (t3 - t2))
+
+
+def warp_const_plain(planes, uv, aux, dmax):
+    """Plain PyTorch version of the kernel; same contract as
+    `warp_const_batched`."""
+    B, _, ny, nx = planes.shape
+    dtype, dev = planes.dtype, planes.device
+    u, v = uv[:, 0], uv[:, 1]
+    jj = torch.arange(nx, dtype=dtype, device=dev)
+    ii = torch.arange(ny, dtype=dtype, device=dev)[:, None]
+    xx = jj + u
+    yy = ii + v
+    x0 = torch.floor(xx)
+    y0 = torch.floor(yy)
+    in_dom = ((xx >= 1) & (x0 <= nx - 3) & (yy >= 1) & (y0 <= ny - 3)
+              & ((x0 - jj).abs() <= dmax) & ((y0 - ii).abs() <= dmax))
+    cx = _keys(xx - x0)
+    cy = _keys(yy - y0)
+    # in-domain taps never clamp; the clamp only keeps the gathers of
+    # out-of-domain pixels (zeroed below) inside the image
+    xa = torch.nan_to_num(x0).clamp(-1, nx).long() - 1
+    ya = torch.nan_to_num(y0).clamp(-1, ny).long() - 1
+    flat = planes.reshape(B, 3, ny * nx)
+    acc = torch.zeros_like(flat)
+    for m in range(4):
+        row = (ya + m).clamp(0, ny - 1) * nx
+        for l in range(4):
+            idx = (row + (xa + l).clamp(0, nx - 1)).reshape(B, 1, -1)
+            w = (cy[m] * cx[l]).reshape(B, 1, -1)
+            acc = acc + w * torch.gather(flat, 2, idx.expand(B, 3, -1))
+    acc = torch.where(in_dom.reshape(B, 1, -1), acc, torch.zeros_like(acc))
+    iw, iwx, iwy = acc.reshape(B, 3, ny, nx).unbind(1)
+    rho_c = iw - iwx * u - iwy * v - aux
+    grad = iwx * iwx + iwy * iwy
+    return torch.stack([iwx, iwy, rho_c, grad], dim=1), 0
+
+
+def _check(planes, uv, aux, dmax):
+    if planes.ndim != 4 or planes.shape[1] != 3:
+        raise ValueError(f"planes must be (B, 3, ny, nx), got {tuple(planes.shape)}")
+    B, _, ny, nx = planes.shape
+    if tuple(uv.shape) != (B, 2, ny, nx):
+        raise ValueError(f"uv must be {(B, 2, ny, nx)}, got {tuple(uv.shape)}")
+    if tuple(aux.shape) != (B, ny, nx):
+        raise ValueError(f"aux must be {(B, ny, nx)}, got {tuple(aux.shape)}")
+    for name, t in (("planes", planes), ("uv", uv), ("aux", aux)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.device != planes.device:
+            raise ValueError(f"{name} is on {t.device}, planes on {planes.device}")
+    if not planes.is_contiguous() or not aux.is_contiguous():
+        raise ValueError("planes and aux must be contiguous")
+    if B > 1 and uv.stride(0) < 2 * ny * nx or uv.stride()[1:] != (ny * nx, nx, 1):
+        raise ValueError("uv must be contiguous within each sample")
+    if int(dmax) != dmax or dmax < 0:
+        raise ValueError(f"dmax must be a non-negative integer, got {dmax}")
+
+
+def warp_const_batched(planes, uv, aux, dmax):
+    """Bounded warp of (I1, I1x, I1y) + TV-L1 constants.
+
+    planes: (B, 3, ny, nx) float32 contiguous; uv: (B, 2, ny, nx) float32
+    flow (u, v), contiguous within each sample (a view of the first two
+    planes of the solver state is fine); aux: I0, (B, ny, nx).
+    Returns ((B, 4, ny, nx) constants, overflow count = 0)."""
+    _check(planes, uv, aux, dmax)
+    if planes.device.type == "cpu":
+        return warp_const_plain(planes, uv, aux, dmax)
+    if planes.device.type != "cuda":
+        raise ValueError(f"unsupported device {planes.device}")
+    B, _, ny, nx = planes.shape
+    out = torch.empty((B, 4, ny, nx), dtype=planes.dtype, device=planes.device)
+    if out.numel() == 0:
+        return out, 0
+    lib = _build.load("warp_const", _SIGNATURES)
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.warp_const_tvl1(planes.data_ptr(), uv.data_ptr(),
+                                     uv.stride(0), aux.data_ptr(),
+                                     out.data_ptr(), B, ny, nx, int(dmax),
+                                     stream)
+    warp_const_batched.launches += 1
+    _build.check(status, "warp_const_tvl1")
+    return out, 0
+
+
+warp_const_batched.launches = 0

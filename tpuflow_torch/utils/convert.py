@@ -1,0 +1,28 @@
+"""Carry a solver state across from the JAX package.
+
+The solvers have no weights: what carries across between the two
+packages is the coarse-to-fine state of a pyramid level, as the JAX
+engines' `level_callback` hands it out or as a level checkpoint holds
+it (numpy arrays `u1`, `u2` (B, ny, nx) and the int32 counter `oflow`).
+`resume_from_jax` turns such a state into the `resume=(scale, state)`
+argument of the port's engines, so a run started under JAX can finish
+on the card.
+"""
+
+import numpy as np
+import torch
+
+from tpuflow_torch._device import resolve_device
+
+
+def resume_from_jax(scale, state_np, device=None):
+    """`(scale, state)` for `tvl1_batched(..., resume=...)`.
+
+    Flow fields become float32 tensors on `device` (default: the card);
+    integer fields stay integer."""
+    dev = resolve_device(device)
+    state = {}
+    for key, value in state_np.items():
+        t = torch.as_tensor(np.array(value), device=dev)  # a copy it owns
+        state[key] = t.to(torch.float32) if t.is_floating_point() else t
+    return int(scale), state
