@@ -7,12 +7,14 @@ sm_90a under `tpuflow_torch/csrc/`, built with nvcc at first use
 (tpuflow_torch._build), with a plain PyTorch version beside it that
 runs when the tensors lie on the CPU.
 
-Ported so far: the batched TV-L1 engine `tvl1_batched`
-(tpuflow_torch.models.batch).
+Ported so far: the batched engines `tvl1_batched` and
+`hs_pyramidal_batched` (tpuflow_torch.models.batch) and
+`hs_classic_batched` (tpuflow_torch.models.hs_classic).
 """
 
 __version__ = "0.1.0"
 
-from tpuflow_torch.models.batch import tvl1_batched
+from tpuflow_torch.models.batch import hs_pyramidal_batched, tvl1_batched
+from tpuflow_torch.models.hs_classic import hs_classic_batched
 
-__all__ = ["tvl1_batched"]
+__all__ = ["hs_classic_batched", "hs_pyramidal_batched", "tvl1_batched"]

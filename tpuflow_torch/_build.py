@@ -9,8 +9,8 @@ library with a plain C interface and loaded with `ctypes`:
 The build happens at first use, only ever from a wrapper that was
 handed a CUDA tensor (the CPU path never needs `nvcc`).  Libraries go
 to `build/tpuflow_torch/` beside the package, named by a hash of the
-source and the flags, so an edited source rebuilds and an unchanged one
-loads at once.
+source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
+source rebuilds and an unchanged one loads at once.
 `build_all()` starts one `nvcc` per source, all at the same time.
 """
 
@@ -25,7 +25,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "tpuflow_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("warp_const", "tvl1_iterate")
+KERNELS = ("warp_const", "tvl1_iterate", "hs_sor", "hs_classic")
 
 _loaded = {}
 
@@ -40,8 +40,11 @@ def _nvcc():
 
 def _target(name):
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return src, BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -29,8 +29,9 @@
 //                 so the sum is deterministic);
 //   tvl1_dual     updates p in place from the new u (right and lower
 //                 neighbours);
-//   tvl1_finalize one block per sample sums its partials in a fixed
-//                 order, then n += 1 and active = err > thresh && n < max_iter.
+//   stop_finalize one block per sample sums its partials in a fixed
+//                 order, then n += 1 and active = err > thresh && n < max_iter
+//                 (common.cuh).
 // Inactive samples return at once from all three.  The host launches
 // `iters` iterations per call and checks `active` between calls.
 //
@@ -38,34 +39,14 @@
 // cst (B, 4, ny, nx) = (I1wx, I1wy, rho_c, grad), both contiguous;
 // partial (B, blocks per sample) float; err (B,) float; n, active (B,) int.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int BX = 32;
 constexpr int BY = 8;
 constexpr int NT = BX * BY;
-constexpr int FIN_THREADS = 256;
 constexpr float GRAD_IS_ZERO = 1e-10f;  // reference src/tvl1flow.cpp:24
-
-template <typename T>
-__device__ __forceinline__ T block_sum(T x, T* shared) {
-  // every thread of the block must call this; thread 0 gets the total
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int nthreads = blockDim.x * blockDim.y;
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_down_sync(0xffffffffu, x, off);
-  if ((tid & 31) == 0) shared[tid >> 5] = x;
-  __syncthreads();
-  if (tid < 32) {
-    x = tid < nthreads / 32 ? shared[tid] : T(0);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      x += __shfl_down_sync(0xffffffffu, x, off);
-  }
-  return x;
-}
 
 __global__ void tvl1_primal(float* __restrict__ state,
                             const float* __restrict__ cst,
@@ -150,26 +131,6 @@ __global__ void tvl1_dual(float* __restrict__ state,
   s[5 * plane + p] = (s[5 * plane + p] + taut * u2y) * ng2;
 }
 
-__global__ void tvl1_finalize(const float* __restrict__ partial, int nblocks,
-                              float* __restrict__ err, int* __restrict__ n,
-                              int* __restrict__ active, float thresh,
-                              int max_iter) {
-  __shared__ double shared[FIN_THREADS / 32];
-  const int b = blockIdx.x;
-  if (!active[b]) return;
-  double acc = 0.0;
-  for (int k = threadIdx.x; k < nblocks; k += FIN_THREADS)
-    acc += partial[(size_t)b * nblocks + k];
-  acc = block_sum(acc, shared);  // its __syncthreads orders the write below
-  if (threadIdx.x == 0) {
-    const float e = (float)acc;
-    const int it = n[b] + 1;
-    err[b] = e;
-    n[b] = it;
-    active[b] = (e > thresh) && (it < max_iter);
-  }
-}
-
 }  // namespace
 
 // Runs `iters` iterations (each a primal, dual and finalize launch) on
@@ -190,7 +151,7 @@ extern "C" int tvl1_iterate_run(float* state, const float* cst, float* partial,
     tvl1_primal<<<grid, block, 0, s>>>(state, cst, active, partial, ny, nx,
                                        l_t, theta);
     tvl1_dual<<<grid, block, 0, s>>>(state, active, ny, nx, taut);
-    tvl1_finalize<<<B, FIN_THREADS, 0, s>>>(partial, nblocks, err, n, active,
+    stop_finalize<<<B, FIN_THREADS, 0, s>>>(partial, nblocks, err, n, active,
                                             thresh, max_iter);
   }
   return (int)cudaGetLastError();

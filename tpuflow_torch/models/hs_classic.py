@@ -1,0 +1,59 @@
+"""Classic (1981) Horn-Schunck: single scale, no warping, no pyramid.
+
+Counterpart of tpuflow/models/hs_classic.py (reference
+src/horn_schunck_classic.cpp): the derivative stencils (2x2x2 cube
+averages, :47-75), the 12-point neighbourhood average (compute_bar,
+:79-95) and the fixed-count Jacobi iteration (hs_iteration, :99-122).
+All boundary handling is Neumann clamping.  The batched engine runs the
+iteration through `hs_classic_fused` (csrc/hs_classic.cu on the card);
+`_bar` is the reference-form twin its plain version is tested against.
+"""
+
+import torch
+
+from tpuflow_torch._device import resolve_device
+from tpuflow_torch.ops.gradients import _shift_clamp
+from tpuflow_torch.ops.hs_classic import hs_classic_fused
+
+
+def _input_derivatives(a, b):
+    """Ex, Ey, Et via 2x2x2 cube averaging (reference
+    src/horn_schunck_classic.cpp:47-75)."""
+    ar = _shift_clamp(a, 1, -1)      # a(i+1, j)
+    ad = _shift_clamp(a, 1, -2)      # a(i, j+1)
+    adr = _shift_clamp(ad, 1, -1)    # a(i+1, j+1)
+    br = _shift_clamp(b, 1, -1)
+    bd = _shift_clamp(b, 1, -2)
+    bdr = _shift_clamp(bd, 1, -1)
+    Ey = 0.25 * ((ad - a) + (adr - ar) + (bd - b) + (bdr - br))
+    Ex = 0.25 * ((ar - a) + (adr - ad) + (br - b) + (bdr - bd))
+    Et = 0.25 * ((b - a) + (br - ar) + (bd - ad) + (bdr - adr))
+    return Ex, Ey, Et
+
+
+def _bar(u):
+    """12-point weighted neighbourhood average (reference
+    src/horn_schunck_classic.cpp:79-95)."""
+    l = _shift_clamp(u, -1, -1)
+    r = _shift_clamp(u, 1, -1)
+    up = _shift_clamp(u, -1, -2)
+    dn = _shift_clamp(u, 1, -2)
+    ul = _shift_clamp(up, -1, -1)
+    ur = _shift_clamp(up, 1, -1)
+    dl = _shift_clamp(dn, -1, -1)
+    dr = _shift_clamp(dn, 1, -1)
+    return (l + r + up + dn) / 6.0 + (ul + ur + dl + dr) / 12.0
+
+
+def hs_classic_batched(a, b, niter, alpha, device=None):
+    """Batched classic HS: (B, H, W) pairs -> (B, H, W) flows (u, v).
+
+    Inputs (tensors or arrays) are moved to `device` as float32; the
+    default device is the card, and with no card present the call
+    raises unless device="cpu" is given.  No normalisation, as in the
+    reference."""
+    dev = resolve_device(device)
+    a = torch.as_tensor(a, device=dev).to(torch.float32)
+    b = torch.as_tensor(b, device=dev).to(torch.float32)
+    Ex, Ey, Et = _input_derivatives(a, b)
+    return hs_classic_fused(Ex, Ey, Et, alpha, niter)

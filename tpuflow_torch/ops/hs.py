@@ -1,0 +1,172 @@
+"""One warp's 4-color SOR for pyramidal Horn-Schunck with per-sample
+stopping: kernel and plain version.
+
+Counterpart of tpuflow/ops/hs_pallas.py (`hs_sor_error_quarters`).
+`hs_sor_error` sweeps the linearised system of one warp
+(reference src/horn_schunck_pyramidal.cpp:32-71, omega = 1.9) until,
+per sample, the summed squared update of the last full sweep `err`
+drops to `thresh` (= tol^2 * level size) or `max_iter` sweeps ran;
+`err` starts at inf and `thresh < 0` runs exactly `max_iter` sweeps.
+
+A sweep updates the colors of the 2x2 parity grid in the order (0,0),
+(0,1), (1,0), (1,1) (row parity, column parity), and within a color u
+first, then v with that pixel's new u.  That order defines the
+iterates; the TPU kernel's quarter-plane layout and (16, 256) padding
+were layout choices and are not carried over: the layout is unpadded
+(B, C, ny, nx) and the Neumann folds are index clamps.
+
+The arithmetic is the TPU kernel's (hs_pallas.py:107-171), not
+`_sor_sweep`'s (tpuflow_torch.models.hs_pyramidal): rdu = 1/max(Du, 1e-30)
+then a product, and the separable Laplacian (hu + hd)/12 + (h + up + dn)/6
+of `neighbour_sums`.
+
+On a CUDA tensor the wrapper launches csrc/hs_sor.cu (five kernels per
+sweep, see the note there) or raises; on a CPU tensor it runs
+`hs_sor_error_plain`.  Both update `state` IN PLACE and return it.  The
+kernel sums `err` in another order than PyTorch, so a sample's `n` may
+differ from the plain version's by one where `err` lands next to
+`thresh`.
+"""
+
+import ctypes
+
+import torch
+
+from tpuflow_torch import _build
+from tpuflow_torch.ops.gradients import _shift_clamp
+
+SOR_OMEGA = 1.9  # reference src/horn_schunck_pyramidal.cpp:21
+D_FLOOR = 1e-30  # the TPU kernel's guard on Du, Dv (hs_pallas.py:107-110)
+# sweeps launched between two host reads of the `active` flags
+CHECK_EVERY = 16
+
+_SIGNATURES = {
+    "hs_sor_run": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_void_p],
+    "hs_sor_partial_len": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+}
+
+
+def neighbour_sums(f):
+    """The clamped 3x3 neighbourhood of every pixel of (..., ny, nx) `f`
+    as the separable pair sums the TPU kernels evaluate: (h, hu, hd, up,
+    dn) with h the left + right pair of the pixel's row, hu and hd the
+    pairs of the rows above and below, up and dn the pixels above and
+    below.  The direct neighbours sum to h + up + dn, the diagonal ones
+    to hu + hd (csrc/common.cuh:neighbours12)."""
+    h = _shift_clamp(f, -1, -1) + _shift_clamp(f, 1, -1)
+    return (h, _shift_clamp(h, -1, -2), _shift_clamp(h, 1, -2),
+            _shift_clamp(f, -1, -2), _shift_clamp(f, 1, -2))
+
+
+def _laplacian(f):
+    h, hu, hd, up, dn = neighbour_sums(f)
+    return (hu + hd) * (1.0 / 12.0) + (h + up + dn) * (1.0 / 6.0)
+
+
+def _sweep(u, v, au, av, rdu, rdv, dd, alpha2):
+    """One 4-color sweep of every sample; returns new (u, v) and the
+    per-sample summed squared update."""
+    w = SOR_OMEGA
+    u0, v0 = u, v
+    u, v = u.clone(), v.clone()
+    for r in (0, 1):
+        for c in (0, 1):
+            q = (..., slice(r, None, 2), slice(c, None, 2))
+            ula = _laplacian(u)[q]
+            u[q] = ((1.0 - w) * u[q]
+                    + w * (au[q] - dd[q] * v[q] + alpha2 * ula) * rdu[q])
+            vla = _laplacian(v)[q]
+            v[q] = ((1.0 - w) * v[q]
+                    + w * (av[q] - dd[q] * u[q] + alpha2 * vla) * rdv[q])
+    du = u - u0
+    dv = v - v0
+    return u, v, torch.sum(du * du + dv * dv, dim=(-2, -1))
+
+
+def hs_sor_error_plain(state, const, thresh, max_iter, alpha2):
+    """Plain PyTorch version of the kernel; same contract as
+    `hs_sor_error`."""
+    B = state.shape[0]
+    au, av, du, dv, dd = const.unbind(1)
+    rdu = 1.0 / torch.clamp(du, min=D_FLOOR)
+    rdv = 1.0 / torch.clamp(dv, min=D_FLOOR)
+    err = torch.full((B,), float("inf"), dtype=state.dtype,
+                     device=state.device)
+    n = torch.zeros((B,), dtype=torch.int32, device=state.device)
+    active = torch.full((B,), max_iter > 0, dtype=torch.bool,
+                        device=state.device)
+    u, v = state[:, 0], state[:, 1]
+    while bool(active.any()):
+        un, vn, e = _sweep(u, v, au, av, rdu, rdv, dd, alpha2)
+        keep = active[:, None, None]
+        u = torch.where(keep, un, u)
+        v = torch.where(keep, vn, v)
+        err = torch.where(active, e, err)
+        n = n + active.to(torch.int32)
+        active = active & (err > thresh) & (n < max_iter)
+    state[:, 0] = u
+    state[:, 1] = v
+    return state, err, n
+
+
+def _check(state, const):
+    if state.ndim != 4 or state.shape[1] != 2:
+        raise ValueError(f"state must be (B, 2, ny, nx), got {tuple(state.shape)}")
+    B, _, ny, nx = state.shape
+    if tuple(const.shape) != (B, 5, ny, nx):
+        raise ValueError(f"const must be {(B, 5, ny, nx)}, got {tuple(const.shape)}")
+    for name, t in (("state", state), ("const", const)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if const.device != state.device:
+        raise ValueError(f"const is on {const.device}, state on {state.device}")
+
+
+def hs_sor_error(state, const, thresh, max_iter, alpha2):
+    """Run one warp's SOR solve in place.
+
+    state: (B, 2, ny, nx) = (u, v) float32 contiguous, updated in place;
+    const: (B, 5, ny, nx) = (Au, Av, Du, Dv, D) as `warp_const_hs_batched`
+    gives them; thresh, max_iter, alpha2: Python scalars.
+    Returns (state, err (B,) float32, n (B,) int32)."""
+    _check(state, const)
+    if state.device.type == "cpu":
+        return hs_sor_error_plain(state, const, thresh, max_iter, alpha2)
+    if state.device.type != "cuda":
+        raise ValueError(f"unsupported device {state.device}")
+    B, _, ny, nx = state.shape
+    dev = state.device
+    err = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
+    n = torch.zeros((B,), dtype=torch.int32, device=dev)
+    active = torch.full((B,), int(max_iter > 0), dtype=torch.int32,
+                        device=dev)
+    if state.numel() == 0 or max_iter <= 0:
+        return state, err, n
+    lib = _build.load("hs_sor", _SIGNATURES)
+    partial = torch.empty(lib.hs_sor_partial_len(B, ny, nx),
+                          dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        done = 0
+        hs_sor_error.launches += 1
+        while done < max_iter:
+            sweeps = min(CHECK_EVERY, max_iter - done)
+            status = lib.hs_sor_run(
+                state.data_ptr(), const.data_ptr(), partial.data_ptr(),
+                partial.numel(), err.data_ptr(), n.data_ptr(),
+                active.data_ptr(), B, ny, nx, float(thresh), int(max_iter),
+                float(alpha2), sweeps, stream)
+            _build.check(status, "hs_sor_run")
+            done += sweeps
+            if done < max_iter and not bool(active.any()):
+                break
+    return state, err, n
+
+
+hs_sor_error.launches = 0

@@ -1,0 +1,101 @@
+"""Classic Horn-Schunck's fixed-count Jacobi solve: kernel and plain
+version.
+
+Counterpart of tpuflow/ops/hs_classic_pallas.py (`hs_classic_fused`).
+From zero flow, `niter` iterations of (reference hs_iteration,
+src/horn_schunck_classic.cpp:99-122)
+
+    t = (Ex*bar(u) + Ey*bar(v) + Et) * rden,  u, v = bar(u) - Ex*t, bar(v) - Ey*t
+
+with rden = 1/(alpha^2 + Ex^2 + Ey^2) and bar the 12-point weighted
+average with Neumann folds.  The arithmetic is the TPU kernel's
+(hs_classic_pallas.py:51-70): a reciprocal then a product, and
+bar = (h + up + dn)/6 + (hu + hd)/12 over the same neighbour sums as
+the SOR kernel's Laplacian (`tpuflow_torch.ops.hs.neighbour_sums`).
+
+On a CUDA tensor `hs_classic_fused` launches csrc/hs_classic.cu (one
+launch per iteration over ping-pong buffers, see the note there) or
+raises; on a CPU tensor it runs `hs_classic_fused_plain`.
+"""
+
+import ctypes
+
+import torch
+
+from tpuflow_torch import _build
+from tpuflow_torch.ops.hs import neighbour_sums
+
+_SIGNATURES = {
+    "hs_classic_run": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_int, ctypes.c_float,
+                       ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def _bar(f):
+    h, hu, hd, up, dn = neighbour_sums(f)
+    return (h + up + dn) / 6.0 + (hu + hd) / 12.0
+
+
+def hs_classic_fused_plain(Ex, Ey, Et, alpha, niter):
+    """Plain PyTorch version of the kernel; same contract as
+    `hs_classic_fused`."""
+    rden = 1.0 / (alpha * alpha + Ex * Ex + Ey * Ey)
+    u = torch.zeros_like(Ex)
+    v = torch.zeros_like(Ex)
+    for _ in range(int(niter)):
+        ubar = _bar(u)
+        vbar = _bar(v)
+        t = (Ex * ubar + Ey * vbar + Et) * rden
+        u, v = ubar - Ex * t, vbar - Ey * t
+    return u, v
+
+
+def _check(Ex, Ey, Et, niter):
+    if Ex.ndim != 3:
+        raise ValueError(f"Ex must be (B, ny, nx), got {tuple(Ex.shape)}")
+    for name, t in (("Ex", Ex), ("Ey", Ey), ("Et", Et)):
+        if t.shape != Ex.shape:
+            raise ValueError(f"{name} must be {tuple(Ex.shape)}, got {tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.device != Ex.device:
+            raise ValueError(f"{name} is on {t.device}, Ex on {Ex.device}")
+    if int(niter) != niter or niter < 0:
+        raise ValueError(f"niter must be a non-negative integer, got {niter}")
+
+
+def hs_classic_fused(Ex, Ey, Et, alpha, niter):
+    """Classic HS's whole Jacobi solve.
+
+    Ex, Ey, Et: (B, ny, nx) float32 contiguous derivatives (computed once
+    per pair, src/horn_schunck_classic.cpp:139); alpha, niter: Python
+    scalars.  Returns (u, v), each (B, ny, nx) float32."""
+    _check(Ex, Ey, Et, niter)
+    if Ex.device.type == "cpu":
+        return hs_classic_fused_plain(Ex, Ey, Et, alpha, niter)
+    if Ex.device.type != "cuda":
+        raise ValueError(f"unsupported device {Ex.device}")
+    B, ny, nx = Ex.shape
+    bufs = torch.zeros((2, B, 2, ny, nx), dtype=torch.float32,
+                       device=Ex.device)
+    niter = int(niter)
+    if bufs.numel() == 0 or niter == 0:
+        return bufs[0, :, 0], bufs[0, :, 1]
+    lib = _build.load("hs_classic", _SIGNATURES)
+    with torch.cuda.device(Ex.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.hs_classic_run(bufs[0].data_ptr(), bufs[1].data_ptr(),
+                                    Ex.data_ptr(), Ey.data_ptr(),
+                                    Et.data_ptr(), B, ny, nx,
+                                    float(alpha * alpha), niter, stream)
+    hs_classic_fused.launches += 1
+    _build.check(status, "hs_classic_run")
+    out = bufs[niter % 2]
+    return out[:, 0], out[:, 1]
+
+
+hs_classic_fused.launches = 0

@@ -16,7 +16,9 @@ from tpuflow_torch._device import resolve_device
 
 
 def resume_from_jax(scale, state_np, device=None):
-    """`(scale, state)` for `tvl1_batched(..., resume=...)`.
+    """`(scale, state)` for `tvl1_batched(..., resume=...)` or
+    `hs_pyramidal_batched(..., resume=...)`, from a level state of the
+    JAX engine of the same name (both hand out {"u1", "u2", "oflow"}).
 
     Flow fields become float32 tensors on `device` (default: the card);
     integer fields stay integer."""
