@@ -9,22 +9,29 @@ then runs these phases, each printing one JSON line:
 
   1. card, torch and CUDA versions, and the kernels' build time;
   2. each kernel against its plain version, at the level-0 shape
-     (B=4, 436x1024, synth_pair's flow) and a small level:
+     (436x1024, synth_pair's flow; B=4 for the batched engines' kernels,
+     B=1 for the single-pair solvers') and a small level:
      K1 (warp_const) and K2 (tvl1_iterate) at 7x16; K3 (warp_const_hs),
-     K4 (hs_sor) and K6 (hs_classic) at 55x128, whose odd height puts
-     the last row at the even parity.  The iterative kernels run a
-     fixed count (K2, K4: 8; K6: 100), then K2 and K4 stop="error"
-     from a zero flow (n equal or off by one);
-  3. the three main paths on 4 pairs at 1024x436, each run with every
-     launch count set to 0 just before it and read just after:
-     `tvl1_batched` and `hs_pyramidal_batched` (stop="error") and
-     `hs_classic_batched` (100 iterations, alpha 7), kernels against
-     plain versions (both on the card), the flow against the pairs'
-     synthetic ground truth, and the two HS engines against the
-     reference binary's goldens (tests/goldens/solvers.npz);
-  4. timing at the benchmark geometry, B=128, for each engine: fields/s
-     over 3 reps after one warm call, peak device memory, where one
-     call's time goes (per pyramid level, and by kernel under
+     K4 (hs_sor), K5 (warp_planes), K6 (hs_classic) and K7 (brox_sor) at
+     55x128, whose odd height puts the last row at the even parity.  K5
+     warps Brox's six derivative planes; K7 solves the system that
+     `brox_scale` assembles from the synthetic flow.  The iterative
+     kernels run a fixed count (K2, K4, K7: 8; K6: 100), then K2, K4 and
+     K7 stop="error" from a zero flow or increment (n equal or off by
+     one);
+  3. the main paths at 1024x436, each run with every launch count set to
+     0 just before it and read just after: `tvl1_batched` and
+     `hs_pyramidal_batched` (4 pairs, stop="error"),
+     `hs_classic_batched` (4 pairs, 100 iterations, alpha 7), and the
+     single-pair `brox_spatial` and `robust_expo` (gray, method 1) at the
+     reference CLI defaults (75 K5 launches and 75 K7 calls each);
+     kernels against plain versions (both on the card), the flow against
+     the pairs' synthetic ground truth, and the HS, Brox and robust-expo
+     solvers against the reference binary's goldens (tests/goldens/);
+  4. timing at the benchmark geometry: the batched engines at B=128
+     (fields/s), the single-pair solvers on one pair (seconds per pair),
+     each over 3 reps after one warm call, with peak device memory,
+     where one call's time goes (per pyramid level, and by kernel under
      torch.profiler), and each kernel's time at level 0 against its
      bound and its plain version.
 
@@ -57,18 +64,26 @@ K2_FLOPS_PX = 60
 K3_FLOPS_PX = 175
 K4_FLOPS_PX = 45
 K6_FLOPS_PX_ITER = 32
+# K5 for one in-domain pixel of P planes (two Keys weight sets, 16 tap
+# weights, 32 operations per plane); K7 for one sweep (two divergences,
+# two reciprocals and updates, the squared update)
+K5_FLOPS_PX_BASE, K5_FLOPS_PX_PLANE = 40, 32
+K7_FLOPS_PX = 40
 K1_PLANES = 6 + 4   # reads I1, I1x, I1y, u, v, I0; writes 4 constants
 K2_PLANES = 10 + 6  # reads 6 state + 4 constant planes; writes 6 state
 K3_PLANES = 6 + 5   # reads I2, I2x, I2y, u, v, I1; writes 5 constants
 K4_PLANES = 7 + 2   # reads u, v + 5 constant planes; writes u, v
 K6_PLANES = 3 + 2   # one call reads Ex, Ey, Et; writes u, v
+K7_PLANES = 11 + 2  # reads du, dv + 9 constant planes; writes du, dv
 B_CHECK, B_TIME = 4, 128
 SEED0 = 100
 # TV-L1 (l_t, theta, taut) at the CLI defaults; HS and classic alpha
 TVL1_PARAMS = (0.15 * 0.3, 0.3, 0.25 / 0.3)
 HS_ALPHA2 = 7.0 * 7.0
 CLASSIC_NITER, CLASSIC_ALPHA = 100, 7.0  # tools/bench_all7.py:83
-GOLDENS = Path(__file__).resolve().parent / "tests" / "goldens" / "solvers.npz"
+GOLDEN_DIR = Path(__file__).resolve().parent / "tests" / "goldens"
+GOLDENS = GOLDEN_DIR / "solvers.npz"
+BROX_DMAX0 = 8  # level 0's displacement bound at max_motion 8
 
 
 def emit(**fields):
@@ -222,6 +237,107 @@ def check_classic(dev, ny, nx):
     return out
 
 
+def brox_inputs(dev, ny, nx):
+    """Level-0 inputs of one Brox solve on synth_pair's first pair: the
+    normalised, presmoothed images (I1, I2) as `brox_spatial` hands
+    them to `brox_scale`, the six planes (I2, I2x, I2y, I2xx, I2xy,
+    I2yy) that K5 warps, and the synthetic flow (u, v) from I1 to I2."""
+    from tpuflow_torch.data import synth_flow
+    from tpuflow_torch.models.common import build_pyramid
+    from tpuflow_torch.ops.gradients import centered_gradient, dxx, dxy, dyy
+
+    I1, I2 = (im[0] for im in pairs(1, ny, nx, dev))
+    (I1, I2), = build_pyramid((I1, I2), 1, 0.5)[0]
+    planes = torch.stack([I2, *centered_gradient(I2), dxx(I2), dxy(I2),
+                          dyy(I2)])[None].contiguous()
+    u, v = (-torch.as_tensor(f, dtype=torch.float32, device=dev)
+            for f in synth_flow(ny, nx))
+    return I1, I2, planes, u, v
+
+
+def check_warp_planes(dev, ny, nx, dmax):
+    """K5 against its plain version on the six Brox planes."""
+    from tpuflow_torch.ops.warp import warp_planes_batched, warp_planes_plain
+
+    _, _, planes, u, v = brox_inputs(dev, ny, nx)
+    uv = torch.stack([u, v])[None]
+    got, oflow = warp_planes_batched(planes, uv, dmax)
+    ref, _ = warp_planes_plain(planes, uv, dmax)
+    torch.cuda.synchronize()
+    rel, err = rel_err(got, ref)
+    out = {"shape": list(planes.shape), "dmax": dmax, "max_abs_err": err,
+           "max_rel_err": rel,
+           "in_domain": float((ref[:, 0] != 0).float().mean()),
+           "overflow": oflow}
+    # f32 sums of 16 taps, contracted to FMAs on the card
+    if not rel <= 1e-5 or oflow != 0:
+        raise AssertionError(f"warp_planes disagrees with its plain version: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def swapped(swaps):
+    """Set each (module, name) to a replacement inside the block."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, fn in swaps:
+        setattr(mod, name, fn)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def brox_system(dev, ny, nx, dmax):
+    """(state, const, thresh, alpha) of the first SOR solve of a level-0
+    Brox outer iteration from the synthetic flow, the constants
+    assembled by `brox_scale` itself (captured at its K7 call); the
+    state is the zero increment."""
+    import tpuflow_torch.models.brox_spatial as bs
+    from tpuflow_torch.ops.brox import brox_sor_error_plain
+
+    I1, I2, _, u, v = brox_inputs(dev, ny, nx)
+    seen = []
+
+    def capture(state, const, thresh, max_iter, alpha):
+        seen.append((state.clone(), const.clone(), thresh, alpha))
+        return brox_sor_error_plain(state, const, thresh, max_iter, alpha)
+
+    with swapped([(bs, "brox_sor_error", capture)]):
+        bs.brox_scale(I1, I2, u, v, outer_iter=1, warp_mode="exact",
+                      dmax=dmax)
+    return seen[0]
+
+
+def check_brox_sor(dev, ny, nx, dmax):
+    """K7 against its plain version on a Brox system: 8 fixed sweeps,
+    then stop="error" at the solver's threshold from the zero increment
+    (n equal or off by one: the kernel sums err in another order)."""
+    from tpuflow_torch.ops.brox import brox_sor_error, brox_sor_error_plain
+
+    state, const, thresh, alpha = brox_system(dev, ny, nx, dmax)
+    out = {"shape": list(state.shape), "thresh": thresh}
+    got, _, n = brox_sor_error(state.clone(), const, -1.0, 8, alpha)
+    ref, _, n_ref = brox_sor_error_plain(state.clone(), const, -1.0, 8, alpha)
+    torch.cuda.synchronize()
+    out["fixed8_max_abs_err"] = float((got - ref).abs().max())
+    out["fixed8_scale"] = float(ref.abs().max())
+    # f32, FMA-contracted on the card: 2e-4 of the increment's scale
+    if not (out["fixed8_max_abs_err"] <= 2e-4 * max(out["fixed8_scale"], 1e-3)
+            and n.tolist() == [8] and n_ref.tolist() == [8]):
+        raise AssertionError(f"brox_sor (8 sweeps) disagrees: {out}")
+    got, err, n = brox_sor_error(state.clone(), const, thresh, 300, alpha)
+    ref, err_ref, n_ref = brox_sor_error_plain(state.clone(), const, thresh,
+                                               300, alpha)
+    out.update(n=n.tolist(), n_plain=n_ref.tolist(), err=err.tolist(),
+               err_plain=err_ref.tolist())
+    out["error_max_abs_err"] = (float((got - ref).abs().max())
+                                if n.tolist() == n_ref.tolist() else None)
+    if not bool(((n - n_ref).abs() <= 1).all()):
+        raise AssertionError(f"brox_sor stopping counts differ by more than 1: {out}")
+    return out
+
+
 def _warp_hs_plain(planes, uv, aux, dmax, alpha2):
     from tpuflow_torch.ops.warp import warp_const_plain
 
@@ -233,25 +349,23 @@ def plain_versions():
     """Run the engines through the kernels' plain versions (on whatever
     device the tensors lie on) inside the block."""
     import tpuflow_torch.models.batch as batch
+    import tpuflow_torch.models.brox_spatial as brox
     import tpuflow_torch.models.hs_classic as classic
+    import tpuflow_torch.ops.interp as interp
+    from tpuflow_torch.ops.brox import brox_sor_error_plain
     from tpuflow_torch.ops.hs import hs_sor_error_plain
     from tpuflow_torch.ops.hs_classic import hs_classic_fused_plain
     from tpuflow_torch.ops.tvl1 import tvl1_iterate_error_plain
-    from tpuflow_torch.ops.warp import warp_const_plain
+    from tpuflow_torch.ops.warp import warp_const_plain, warp_planes_plain
 
-    swaps = [(batch, "warp_const_batched", warp_const_plain),
-             (batch, "tvl1_iterate_error", tvl1_iterate_error_plain),
-             (batch, "warp_const_hs_batched", _warp_hs_plain),
-             (batch, "hs_sor_error", hs_sor_error_plain),
-             (classic, "hs_classic_fused", hs_classic_fused_plain)]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
-    for mod, name, fn in swaps:
-        setattr(mod, name, fn)
-    try:
+    with swapped([(batch, "warp_const_batched", warp_const_plain),
+                  (batch, "tvl1_iterate_error", tvl1_iterate_error_plain),
+                  (batch, "warp_const_hs_batched", _warp_hs_plain),
+                  (batch, "hs_sor_error", hs_sor_error_plain),
+                  (classic, "hs_classic_fused", hs_classic_fused_plain),
+                  (interp, "warp_planes_batched", warp_planes_plain),
+                  (brox, "brox_sor_error", brox_sor_error_plain)]):
         yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
 
 
 def epe(u, v, ru, rv):
@@ -317,6 +431,188 @@ def main_path(dev, counters, engine, kernels_used, synth_bound, **kw):
     return out
 
 
+def sweeps_launched(its, max_iter=300):
+    """Sweeps K7 launches for solves that needed `its` sweeps: the host
+    reads `active` every CHECK_EVERY sweeps."""
+    from tpuflow_torch.ops.sweeps import CHECK_EVERY
+
+    return sum(min(-(-n // CHECK_EVERY) * CHECK_EVERY, max_iter) for n in its)
+
+
+def pair_main_path(dev, counters, engine, synth_bound, expect, **kw):
+    """One single-pair main path at 1024x436 (synth_pair, seed SEED0)
+    through the kernels, then through the plain versions; `expect` maps
+    each wrapper of the path to the launches it must make."""
+    from tpuflow_torch.data import NX, NY, synth_flow
+
+    I0, I1 = (im[0] for im in pairs(1, NY, NX, dev))
+    (u, v, diags), seconds, launches = counted(
+        counters, lambda: engine(I0, I1, with_diag=True, **kw))
+    with plain_versions():
+        pu, pv = engine(I0, I1, **kw)
+    if tuple(u.shape) != (NY, NX) or not bool(
+            torch.isfinite(u).all() and torch.isfinite(v).all()):
+        raise AssertionError("main path: flow of the wrong shape or not finite")
+    tu, tv = (torch.as_tensor(f, dtype=torch.float32, device=dev)
+              for f in synth_flow(NY, NX))
+    its = {str(s): d["iterations"].ravel().tolist() for s, d in enumerate(diags)}
+    out = {"engine": engine.__name__, "shape": [NY, NX], "seconds": seconds,
+           "launches": launches,
+           "epe_kernels_vs_plain": epe(u, v, pu, pv),
+           "epe_vs_synthetic_flow": epe(u, v, -tu, -tv),
+           "sweeps_per_solve": its,
+           "sweeps_needed_launched": {s: [sum(n), sweeps_launched(n)]
+                                      for s, n in its.items()}}
+    if not out["epe_kernels_vs_plain"] <= 0.01:
+        raise AssertionError(f"main path: kernels vs plain EPE > 0.01: {out}")
+    wrong = {k.__name__: launches[k.__name__] for k in expect
+             if launches[k.__name__] != expect[k]}
+    if wrong:
+        raise AssertionError(f"main path launches {wrong}, expected "
+                             f"{ {k.__name__: n for k, n in expect.items()} }")
+    if not out["epe_vs_synthetic_flow"] <= synth_bound:
+        raise AssertionError(f"main path: flow far from the truth: {out}")
+    return out
+
+
+def pair_golden_epe(engine, dev, name, key):
+    """EPE of `engine` (nscales 3, as the goldens were made) on the
+    golden pair against the reference binary's flow `key`_u, `key`_v of
+    tests/goldens/`name`.npz."""
+    g = np.load(GOLDEN_DIR / f"{name}.npz")
+    I0, I1 = (torch.as_tensor(g[k], dtype=torch.float32, device=dev)
+              for k in ("I0", "I1"))
+    u, v = engine(I0, I1, nscales=3, clamp_scales=False)
+    ru, rv = (torch.as_tensor(g[f"{key}_{c}"], dtype=torch.float32, device=dev)
+              for c in "uv")
+    return epe(u, v, ru, rv)
+
+
+@contextlib.contextmanager
+def marking_levels(mark):
+    """Call mark(k, None) after the k-th `brox_scale` call (coarsest
+    first) inside the block: `brox_spatial` has no level callback."""
+    import tpuflow_torch.models.brox_spatial as bs
+
+    scale_fn = bs.brox_scale
+    calls = []
+
+    def wrapped(*args, **kw):
+        out = scale_fn(*args, **kw)
+        mark(len(calls), None)
+        calls.append(None)
+        return out
+
+    with swapped([(bs, "brox_scale", wrapped)]):
+        yield
+
+
+def pair_timing(engine, I0, I1, counters, groups, levels_via_callback):
+    """Seconds per pair of a single-pair solver at 1024x436 over 3 reps
+    after one warm call, peak memory, launches per pair and the
+    breakdown of one call."""
+    out = {"engine": engine.__name__, "shape": list(I0.shape)}
+    engine(I0, I1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters:
+        c.launches = 0
+    reps = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine(I0, I1)
+        torch.cuda.synchronize()
+        reps.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    per_pair = {c.__name__: c.launches / len(reps) for c in counters}
+    if levels_via_callback:
+        where = breakdown(lambda cb: engine(I0, I1, level_callback=cb), groups)
+    else:
+        def run(cb):
+            if cb is None:
+                return engine(I0, I1)
+            with marking_levels(cb):
+                return engine(I0, I1)
+        where = breakdown(run, groups)
+        # marks count calls coarsest first: name them by pyramid level
+        n = len(where["seconds_to_level_end"])
+        where["seconds_to_level_end"] = {
+            str(n - 1 - int(k)): t
+            for k, t in where["seconds_to_level_end"].items()}
+    out.update(seconds_per_pair=sum(reps) / len(reps), rep_s=reps,
+               launches_per_pair=per_pair, max_memory_allocated_bytes=peak,
+               breakdown=where)
+    return out
+
+
+def device_ms(fn, n, keys=None):
+    """Device time of one call of `fn`, over n calls under
+    torch.profiler after one warm call: the kernels whose names contain
+    one of `keys` (every kernel if None).  At B = 1 a wrapper's host
+    work outlasts its kernel, so CUDA events around a run of calls would
+    time the host's enqueueing instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and (keys is None or any(k in e.key for k in keys)))
+    return total / 1e3 / n
+
+
+def level0_brox(dev):
+    """K5 and K7 alone at level 0 of the 1024x436 pair: device ms per
+    launch (torch.profiler), the plain version's device ms, the bound,
+    and both calls' ms between CUDA events (host-bound here).  K7's unit
+    is one wrapper call of one fixed sweep (red, black, finalize); also
+    its device ms per sweep in a 16-sweep call."""
+    from tpuflow_torch.data import NX, NY
+    from tpuflow_torch.ops.brox import brox_sor_error, brox_sor_error_plain
+    from tpuflow_torch.ops.warp import warp_planes_batched, warp_planes_plain
+
+    px = NY * NX
+    out = {}
+    _, _, planes, u, v = brox_inputs(dev, NY, NX)
+    uv = torch.stack([u, v])[None]
+    P = planes.shape[1]
+
+    def k5():
+        return warp_planes_batched(planes, uv, BROX_DMAX0)
+
+    def k5_plain():
+        return warp_planes_plain(planes, uv, BROX_DMAX0)
+
+    k = {"ms": device_ms(k5, 50, ("warp_planes_kernel",)),
+         "plain_ms": device_ms(k5_plain, 5),
+         "call_ms": time_ms(k5, 50), "plain_call_ms": time_ms(k5_plain, 5),
+         "planes": P}
+    k["bound_ms"], k["bound_by"] = bound_ms(
+        px, 2 * P + 2, K5_FLOPS_PX_BASE + K5_FLOPS_PX_PLANE * P)
+    out["warp_planes_batched"] = k
+    state, const, _, alpha = brox_system(dev, NY, NX, BROX_DMAX0)
+    keys = ("brox_sor_color", "stop_finalize")
+
+    def k7(sweeps=1):
+        return brox_sor_error(state, const, -1.0, sweeps, alpha)
+
+    def k7_plain():
+        return brox_sor_error_plain(state, const, -1.0, 1, alpha)
+
+    k = {"ms": device_ms(k7, 50, keys),
+         "plain_ms": device_ms(k7_plain, 5),
+         "call_ms": time_ms(k7, 50), "plain_call_ms": time_ms(k7_plain, 5),
+         "ms_per_sweep_in_16": device_ms(lambda: k7(16), 10, keys) / 16}
+    k["bound_ms"], k["bound_by"] = bound_ms(px, K7_PLANES, K7_FLOPS_PX)
+    out["brox_sor_error"] = k
+    return out
+
+
 # device kernels grouped by the part of an engine that launches them
 TVL1_GROUPS = (("warp_const", "K1 warp_const"), ("tvl1_primal", "K2 tvl1_iterate"),
                ("tvl1_dual", "K2 tvl1_iterate"), ("stop_finalize", "K2 tvl1_iterate"),
@@ -324,6 +620,8 @@ TVL1_GROUPS = (("warp_const", "K1 warp_const"), ("tvl1_primal", "K2 tvl1_iterate
 HS_GROUPS = (("warp_const", "K3 warp_const_hs"), ("hs_sor_color", "K4 hs_sor"),
              ("stop_finalize", "K4 hs_sor"), ("gemm", "zoom matmul"))
 CLASSIC_GROUPS = (("hs_classic_iteration", "K6 hs_classic"),)
+BROX_GROUPS = (("warp_planes", "K5 warp_planes"), ("brox_sor_color", "K7 brox_sor"),
+               ("stop_finalize", "K7 brox_sor"), ("gemm", "zoom matmul"))
 
 
 def breakdown(run, groups, levels=True):
@@ -480,14 +778,23 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from tpuflow_torch import (_build, hs_classic_batched,
-                               hs_pyramidal_batched, tvl1_batched)
+    import os
+
+    from tpuflow_torch import (_build, brox_spatial, hs_classic_batched,
+                               hs_pyramidal_batched, robust_expo, tvl1_batched)
     from tpuflow_torch.data import NX, NY
+    from tpuflow_torch.ops.brox import brox_sor_error
     from tpuflow_torch.ops.hs import hs_sor_error
     from tpuflow_torch.ops.hs_classic import hs_classic_fused
+    from tpuflow_torch.ops.pyramid import clamp_nscales
     from tpuflow_torch.ops.tvl1 import tvl1_iterate_error
-    from tpuflow_torch.ops.warp import warp_const_batched, warp_const_hs_batched
+    from tpuflow_torch.ops.warp import (warp_const_batched,
+                                        warp_const_hs_batched,
+                                        warp_planes_batched)
 
+    if os.environ.get("TPUFLOW_EXACT_WARP"):
+        raise RuntimeError("TPUFLOW_EXACT_WARP is set: the Brox paths would "
+                           "not run K5")
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -511,12 +818,17 @@ def main():
                          check_iterative(dev, 55, 128, 3, "hs")],
         "hs_classic_fused": [check_classic(dev, 436, 1024),
                              check_classic(dev, 55, 128)],
+        "warp_planes_batched": [check_warp_planes(dev, 436, 1024, BROX_DMAX0),
+                                check_warp_planes(dev, 55, 128, 3)],
+        "brox_sor_error": [check_brox_sor(dev, 436, 1024, BROX_DMAX0),
+                           check_brox_sor(dev, 55, 128, 3)],
     }
     for name, c in checks.items():
         emit(phase=f"{name}_vs_plain", checks=c)
 
     counters = (warp_const_batched, tvl1_iterate_error, warp_const_hs_batched,
-                hs_sor_error, hs_classic_fused)
+                hs_sor_error, warp_planes_batched, hs_classic_fused,
+                brox_sor_error)
     paths = {
         "tvl1": main_path(dev, counters, tvl1_batched,
                           (warp_const_batched, tvl1_iterate_error), 0.5,
@@ -532,16 +844,33 @@ def main():
                                 (hs_classic_fused,), None,
                                 niter=CLASSIC_NITER, alpha=CLASSIC_ALPHA),
     }
+    # the single-pair solvers at the reference CLI defaults: 5 levels at
+    # 1024x436 (clamped on min(nx, ny)), 15 outer x 1 inner iterations,
+    # one K5 launch and one K7 call per outer iteration: 75 each
+    per_pair = {warp_planes_batched: 15 * clamp_nscales(NX, NY, 0.5, 10, use_hypot=False),
+                brox_sor_error: 15 * clamp_nscales(NX, NY, 0.5, 10, use_hypot=False)}
+    # the card gave EPE 0.0122 (Brox) and 0.0355 (robust-expo) against
+    # the synthetic flow on an H100; 0.1 leaves room, as for HS
+    paths["brox_spatial"] = pair_main_path(dev, counters, brox_spatial, 0.1,
+                                           per_pair)
+    paths["robust_expo"] = pair_main_path(dev, counters, robust_expo, 0.1,
+                                          per_pair, method_type=1)
     goldens = {
         "hs_pyramidal": golden_epe(hs_pyramidal_batched, dev, "hs_pyramidal"),
         "hs_classic": golden_epe(hs_classic_batched, dev, "hs_classic",
                                  niter=100, alpha=20.0),
+        "brox_spatial_s3": pair_golden_epe(brox_spatial, dev, "brox",
+                                           "spatial_s3"),
+        "robust_expo_gray_m1": pair_golden_epe(robust_expo, dev,
+                                               "robust_expo", "gray_m1"),
     }
     for name, out in paths.items():
         emit(phase=f"main_path_{name}", **out)
     emit(phase="goldens_epe", **goldens)
-    if not (goldens["hs_pyramidal"] <= 0.05 and goldens["hs_classic"] <= 1e-4):
-        raise AssertionError(f"engines disagree with the goldens: {goldens}")
+    if not (goldens["hs_pyramidal"] <= 0.05 and goldens["hs_classic"] <= 1e-4
+            and goldens["brox_spatial_s3"] <= 0.05
+            and goldens["robust_expo_gray_m1"] <= 0.05):
+        raise AssertionError(f"solvers disagree with the goldens: {goldens}")
 
     I0, I1 = pairs(B_TIME, NY, NX, dev)
     timings = [
@@ -551,15 +880,25 @@ def main():
                       stop="error"),
         engine_timing(hs_classic_batched, I0, I1, counters, CLASSIC_GROUPS,
                       pyramid=False, niter=CLASSIC_NITER, alpha=CLASSIC_ALPHA),
+        pair_timing(brox_spatial, I0[0], I1[0], counters, BROX_GROUPS,
+                    levels_via_callback=False),
+        pair_timing(robust_expo, I0[0], I1[0], counters, BROX_GROUPS,
+                    levels_via_callback=True),
     ]
     for t in timings:
         emit(phase="timing", **t)
     lvl0 = level0_kernels(dev, I0, I1)
     emit(phase="level0_kernels", batch=B_TIME, shape=[NY, NX], **lvl0)
+    del I0, I1
+    lvl0_pair = level0_brox(dev)
+    emit(phase="level0_kernels", batch=1, shape=[NY, NX], **lvl0_pair)
+    lvl0.update(lvl0_pair)
 
     path_of = {"warp_const_batched": "tvl1", "tvl1_iterate_error": "tvl1",
                "warp_const_hs_batched": "hs", "hs_sor_error": "hs",
-               "hs_classic_fused": "hs_classic"}
+               "hs_classic_fused": "hs_classic",
+               "warp_planes_batched": "brox_spatial",
+               "brox_sor_error": "brox_spatial"}
     sources = {
         "warp_const_batched": ("warp_const.cu", "warp_pallas.py:90", "max_abs_err"),
         "tvl1_iterate_error": ("tvl1_iterate.cu", "tvl1_pallas.py:61",
@@ -569,6 +908,10 @@ def main():
         "hs_sor_error": ("hs_sor.cu", "hs_pallas.py:77", "fixed8_max_abs_err"),
         "hs_classic_fused": ("hs_classic.cu", "hs_classic_pallas.py:27",
                              "max_abs_err"),
+        "warp_planes_batched": ("warp_const.cu", "warp_pallas.py:90",
+                                "max_abs_err"),
+        "brox_sor_error": ("brox_sor.cu", "brox_pallas.py:50",
+                           "fixed8_max_abs_err"),
     }
     kernels = []
     for fn in counters:
@@ -584,6 +927,7 @@ def main():
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             # no single PyTorch call computes any of these functions
+            # (grid_sample's bicubic has a = -0.75 and other border rules)
             "library_ms": None})
     emit(kernels=kernels)
     print(smi, flush=True)

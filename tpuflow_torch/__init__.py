@@ -9,12 +9,17 @@ runs when the tensors lie on the CPU.
 
 Ported so far: the batched engines `tvl1_batched` and
 `hs_pyramidal_batched` (tpuflow_torch.models.batch) and
-`hs_classic_batched` (tpuflow_torch.models.hs_classic).
+`hs_classic_batched` (tpuflow_torch.models.hs_classic), and the
+single-pair solvers `brox_spatial` (tpuflow_torch.models.brox_spatial)
+and `robust_expo` (tpuflow_torch.models.robust_expo).
 """
 
 __version__ = "0.1.0"
 
 from tpuflow_torch.models.batch import hs_pyramidal_batched, tvl1_batched
+from tpuflow_torch.models.brox_spatial import brox_spatial
 from tpuflow_torch.models.hs_classic import hs_classic_batched
+from tpuflow_torch.models.robust_expo import robust_expo
 
-__all__ = ["hs_classic_batched", "hs_pyramidal_batched", "tvl1_batched"]
+__all__ = ["brox_spatial", "hs_classic_batched", "hs_pyramidal_batched",
+           "robust_expo", "tvl1_batched"]

@@ -19,3 +19,11 @@ def resolve_device(device=None):
             "tpuflow_torch: no CUDA device is available; pass device='cpu' "
             "to run the plain PyTorch path on the CPU")
     return dev
+
+
+def float32_inputs(device, *arrays):
+    """Each of `arrays` (tensors or arrays) as a float32 tensor on
+    `resolve_device(device)`."""
+    dev = resolve_device(device)
+    return tuple(torch.as_tensor(a, device=dev).to(torch.float32)
+                 for a in arrays)

@@ -1,7 +1,10 @@
-// Fused bounded bicubic warp + per-warp constant assembly, for sm_90a.
+// Bounded bicubic warp, alone or fused with per-warp constant
+// assembly, for sm_90a.
 //
 // Replaces tpuflow/ops/warp_pallas.py:_warp_kernel in modes "tvl1" and
-// "hs" (reached through warp_const_pallas_batched).  For each pixel
+// "hs" (reached through warp_const_pallas_batched) and in mode
+// "planes_fast" (warp_planes_pallas_batched with fast_only=True; K5,
+// warp_planes_kernel below: P planes warped, nothing assembled).  For each pixel
 // (i, j) of each sample b it warps the three planes (I, Ix, Iy) by the
 // flow (u, v) with the 16-tap Keys bicubic at the floor anchor
 // x0 = floor(j + u), y0 = floor(i + v), and writes, with a = aux[b]:
@@ -26,11 +29,18 @@
 // neighbouring addresses, so the taps are served by L1/L2), and no
 // pixel is ever degraded.
 //
-// Layout: planes (B, 3, ny, nx) contiguous; uv (B, 2, ny, nx) with the
-// last three dims contiguous and batch stride `uv_bstride` elements (a
-// view of the solver state); aux (B, ny, nx); out (B, 4 or 5, ny, nx).
-// The two modes are one template, so K1's ("tvl1") arithmetic is the
-// same code for both.
+// K5 reads P planes, u and v and writes P planes: at level 0 of a
+// 1024x436 pair with Brox's P = 6 that is 14 planes, 25.0 MB, 7.5 us at
+// 3.35 TB/s, against ~230 flops per pixel.  Its thread computes the 16
+// tap weights once and loops over the planes (P is a runtime value:
+// robust-expo warps 6 per channel).
+//
+// Layout: planes (B, 3 or P, ny, nx) contiguous; uv (B, 2, ny, nx) with
+// the last three dims contiguous and batch stride `uv_bstride` elements
+// (a view of the solver state); aux (B, ny, nx); out (B, 4, 5 or P, ny,
+// nx).  The two fused modes are one template, so K1's ("tvl1")
+// arithmetic is the same code for both, and all three kernels share
+// `bounded_cell`.
 
 #include <cuda_runtime.h>
 
@@ -44,6 +54,33 @@ __device__ __forceinline__ void keys_weights(float t, float w[4]) {
   w[1] = 0.5f * (3.0f * t3 - 5.0f * t2 + 2.0f);
   w[2] = 0.5f * (-3.0f * t3 + 4.0f * t2 + t);
   w[3] = 0.5f * (t3 - t2);
+}
+
+// The Keys cell of pixel (i, j) displaced by (u, v): its 4 + 4 tap
+// weights and the offset of its top-left tap from `plane`'s origin.
+// Returns whether the pixel is in domain (x+u >= 1, x0 <= nx-3,
+// y+v >= 1, y0 <= ny-3, both integer displacements within dmax); the
+// weights and offset are set only then.  Written as the in-domain test
+// so that a NaN flow is out of domain.  In-domain taps never leave the
+// image.  Shared by every mode, so the three kernels warp alike.
+__device__ __forceinline__ bool bounded_cell(float u, float v, int i, int j,
+                                             int ny, int nx, int dmax,
+                                             float cx[4], float cy[4],
+                                             size_t* tap0) {
+  const float xx = (float)j + u;
+  const float yy = (float)i + v;
+  const float x0 = floorf(xx);
+  const float y0 = floorf(yy);
+  const bool in_dom = xx >= 1.0f && x0 <= (float)(nx - 3) && yy >= 1.0f &&
+                      y0 <= (float)(ny - 3) &&
+                      fabsf(x0 - (float)j) <= (float)dmax &&
+                      fabsf(y0 - (float)i) <= (float)dmax;
+  if (in_dom) {
+    keys_weights(xx - x0, cx);
+    keys_weights(yy - y0, cy);
+    *tap0 = (size_t)((int)y0 - 1) * nx + ((int)x0 - 1);
+  }
+  return in_dom;
 }
 
 enum Mode { TVL1, HS };
@@ -64,22 +101,11 @@ __global__ void warp_const_kernel(const float* __restrict__ planes,
   const float* uvb = uv + (size_t)b * uv_bstride;
   const float u = uvb[p];
   const float v = uvb[plane + p];
-  const float xx = (float)j + u;
-  const float yy = (float)i + v;
-  const float x0 = floorf(xx);
-  const float y0 = floorf(yy);
-  // written as the in-domain test so that a NaN flow is out of domain
-  const bool in_dom = xx >= 1.0f && x0 <= (float)(nx - 3) && yy >= 1.0f &&
-                      y0 <= (float)(ny - 3) &&
-                      fabsf(x0 - (float)j) <= (float)dmax &&
-                      fabsf(y0 - (float)i) <= (float)dmax;
   float iw = 0.0f, iwx = 0.0f, iwy = 0.0f;
-  if (in_dom) {
-    float cx[4], cy[4];
-    keys_weights(xx - x0, cx);
-    keys_weights(yy - y0, cy);
-    const float* img = planes + (size_t)b * 3 * plane +
-                       (size_t)((int)y0 - 1) * nx + ((int)x0 - 1);
+  float cx[4], cy[4];
+  size_t tap0;
+  if (bounded_cell(u, v, i, j, ny, nx, dmax, cx, cy, &tap0)) {
+    const float* img = planes + (size_t)b * 3 * plane + tap0;
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const float* row = img + (size_t)m * nx;
@@ -107,6 +133,48 @@ __global__ void warp_const_kernel(const float* __restrict__ planes,
     o[2 * plane] = iwx * iwx + alpha2;
     o[3 * plane] = iwy * iwy + alpha2;
     o[4 * plane] = iwx * iwy;
+  }
+}
+
+// K5: the bounded warp of P planes, nothing assembled.  The 16 tap
+// weights are computed once per pixel, then each plane's taps are summed
+// in K1's order.
+__global__ void warp_planes_kernel(const float* __restrict__ planes, int P,
+                                   const float* __restrict__ uv,
+                                   long long uv_bstride,
+                                   float* __restrict__ out, int ny, int nx,
+                                   int dmax) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  const int b = blockIdx.z;
+  if (i >= ny || j >= nx) return;
+  const size_t plane = (size_t)ny * nx;
+  const size_t p = (size_t)i * nx + j;
+  const float* uvb = uv + (size_t)b * uv_bstride;
+  float cx[4], cy[4];
+  size_t tap0;
+  float* o = out + (size_t)b * P * plane + p;
+  if (!bounded_cell(uvb[p], uvb[plane + p], i, j, ny, nx, dmax, cx, cy,
+                    &tap0)) {
+    for (int k = 0; k < P; ++k) o[k * plane] = 0.0f;
+    return;
+  }
+  float w[16];
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+#pragma unroll
+    for (int l = 0; l < 4; ++l) w[4 * m + l] = cy[m] * cx[l];
+  const float* img = planes + (size_t)b * P * plane + tap0;
+  for (int k = 0; k < P; ++k) {
+    const float* pk = img + k * plane;
+    float acc = 0.0f;
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const float* row = pk + (size_t)m * nx;
+#pragma unroll
+      for (int l = 0; l < 4; ++l) acc += w[4 * m + l] * row[l];
+    }
+    o[k * plane] = acc;
   }
 }
 
@@ -138,4 +206,15 @@ extern "C" int warp_const_hs(const float* planes, const float* uv,
                              float alpha2, void* stream) {
   return launch<HS>(planes, uv, uv_bstride, aux, out, B, ny, nx, dmax, alpha2,
                     stream);
+}
+
+extern "C" int warp_planes(const float* planes, int P, const float* uv,
+                           long long uv_bstride, float* out, int B, int ny,
+                           int nx, int dmax, void* stream) {
+  const dim3 block(32, 8);
+  const dim3 grid((nx + block.x - 1) / block.x, (ny + block.y - 1) / block.y,
+                  B);
+  warp_planes_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+      planes, P, uv, uv_bstride, out, ny, nx, dmax);
+  return (int)cudaGetLastError();
 }

@@ -36,7 +36,7 @@ import math
 import numpy as np
 import torch
 
-from tpuflow_torch._device import resolve_device
+from tpuflow_torch._device import float32_inputs
 from tpuflow_torch.models.common import run_pyramid_state
 from tpuflow_torch.models.hs_pyramidal import (DEFAULT_ALPHA, DEFAULT_MAXITER,
                                                DEFAULT_NSCALES, DEFAULT_TOL,
@@ -221,12 +221,6 @@ def _mode_scalars(stop, eps, max_inner, warps, nscales, zfactor, ny, nx,
     return -1.0, rows
 
 
-def _inputs(I0, I1, device):
-    dev = resolve_device(device)
-    return (torch.as_tensor(I0, device=dev).to(torch.float32),
-            torch.as_tensor(I1, device=dev).to(torch.float32))
-
-
 def tvl1_batched(I0, I1, tau=0.25, lam=0.15, theta=0.3, nscales=None,
                  zfactor=0.5, iter_schedule=None, max_motion=8,
                  stop="error", warps=5, epsilon=0.01, max_iterations=300,
@@ -256,7 +250,7 @@ def tvl1_batched(I0, I1, tau=0.25, lam=0.15, theta=0.3, nscales=None,
     iterations, whereas the reference always runs all `warps` warps
     (src/tvl1flow.cpp:92).  `warp_early_exit=False` gives the strictly
     reference-faithful schedule."""
-    I0, I1 = _inputs(I0, I1, device)
+    I0, I1 = float32_inputs(device, I0, I1)
     ny, nx = I0.shape[-2:]
     if nscales is None:
         nscales = clamp_nscales(nx, ny, zfactor, 100, use_hypot=True)
@@ -307,7 +301,7 @@ def hs_pyramidal_batched(I1, I2, alpha=DEFAULT_ALPHA, nscales=None,
     whereas the reference always runs all `warps` warps
     (src/horn_schunck_pyramidal.cpp:111-240).  `warp_early_exit=False`
     gives the strictly reference-faithful schedule."""
-    I1, I2 = _inputs(I1, I2, device)
+    I1, I2 = float32_inputs(device, I1, I2)
     ny, nx = I1.shape[-2:]
     if nscales is None:
         nscales = clamp_nscales(nx, ny, zfactor, DEFAULT_NSCALES,

@@ -1,0 +1,296 @@
+"""Brox et al. 2004 robust optical flow, spatial smoothness.
+
+Counterpart of tpuflow/models/brox_spatial.py (reference
+src/brox_optic_flow_spatial.cpp + src/brox_spatial_mask.cpp, IPOL
+2013.21).  Per scale (brox_optic_flow, :179-444):
+
+  outer loop (outer_iter):
+    warp I2 and its 5 derivative planes by the current flow (:246-251)
+    psi_smooth from the flow gradient (:101-122)
+    psi1..psi4 half-sum divergence coefficients, zero across the image
+      boundary (src/brox_spatial_mask.cpp:16-93)
+    div_u/div_v: psi-weighted divergence of the current flow (:100-171)
+    inner loop (inner_iter, lagged nonlinearity):
+      psi_data / psi_gradient robustness weights (:33-92)
+      assemble Au/Av/Du/Dv/D incl. gradient-constancy Hessian terms
+        (:283-309)
+      red-black SOR on the increment (du, dv) until sqrt(err/size) <= TOL
+        or 300 sweeps (:315-390, omega = 1.9)
+    u += du (:398-401)
+
+Each outer iteration runs two kernels on the card:
+  * the warp of the six planes, `warp_planes_bounded` -> K5
+    (csrc/warp_const.cu, `warp_planes_batched`) when `warp_mode`
+    resolves to "fast", as "auto" does for CUDA tensors;
+  * each inner iteration's SOR solve, `_sor_solve` -> K7
+    (csrc/brox_sor.cu, `brox_sor_error`).
+Both run at EVERY level.  The JAX package warps on its XLA shift path
+and solves on XLA below 96x96 px (tpuflow/ops/interp.py:211,
+tpuflow/models/brox_spatial.py:123-125), where its kernels do not pay;
+the port has no such split.  On the CPU the wrappers run their plain
+versions, and "auto" resolves to the exact gather warp.
+
+`_sor_sweep` (masked full planes, quotients) is the reference-form twin
+that the plain version of K7 is tested against; `_sor_solve(...,
+fused=False)` runs it, on request only.  Computation is float32.
+"""
+
+import math
+import sys
+
+import numpy as np
+import torch
+
+from tpuflow_torch._device import float32_inputs
+from tpuflow_torch.models.common import run_pyramid
+from tpuflow_torch.ops.brox import SOR_OMEGA, brox_sor_error
+from tpuflow_torch.ops.gradients import _shift_clamp, centered_gradient, dxx, dxy, dyy
+from tpuflow_torch.ops.interp import (resolve_warp_mode, warp_planes,
+                                      warp_planes_bounded)
+from tpuflow_torch.ops.pyramid import clamp_nscales
+
+EPSILON = 0.001     # reference src/brox_optic_flow_spatial.cpp:23
+MAXITER_SOR = 300   # :24
+
+# CLI defaults, reference src/brox_spatial_main.cpp:26-36 (2013 v2)
+DEFAULT_ALPHA = 50.0
+DEFAULT_GAMMA = 10.0
+DEFAULT_NSCALES = 10
+DEFAULT_ZFACTOR = 0.5
+DEFAULT_TOL = 1e-4
+DEFAULT_INNER = 1
+DEFAULT_OUTER = 15
+
+
+def psi_divergence(psi):
+    """Half-sum divergence coefficients psi1..psi4 of the robustness
+    weight, zeroed across the image boundary (reference
+    src/brox_spatial_mask.cpp:16-93: psi1 down, psi2 up, psi3 right,
+    psi4 left)."""
+    psi1 = 0.5 * (_shift_clamp(psi, 1, -2) + psi)
+    psi1[..., -1, :] = 0.0
+    psi2 = 0.5 * (_shift_clamp(psi, -1, -2) + psi)
+    psi2[..., 0, :] = 0.0
+    psi3 = 0.5 * (_shift_clamp(psi, 1, -1) + psi)
+    psi3[..., :, -1] = 0.0
+    psi4 = 0.5 * (_shift_clamp(psi, -1, -1) + psi)
+    psi4[..., :, 0] = 0.0
+    return psi1, psi2, psi3, psi4
+
+
+def psi_weighted_divergence(f, psi1, psi2, psi3, psi4):
+    """sum_i psi_i * (f[neighbor_i] - f): the psi-weighted graph
+    Laplacian (reference src/brox_spatial_mask.cpp:100-171).  The psi_i
+    are already zero across the boundary, so clamped neighbour shifts
+    reproduce the reference's boundary cases exactly."""
+    return (psi1 * (_shift_clamp(f, 1, -2) - f)
+            + psi2 * (_shift_clamp(f, -1, -2) - f)
+            + psi3 * (_shift_clamp(f, 1, -1) - f)
+            + psi4 * (_shift_clamp(f, -1, -1) - f))
+
+
+def _red_black(shape, device=None):
+    """(red, black) masks of `shape` (..., ny, nx): (i+j) even, odd."""
+    ny, nx = shape[-2:]
+    ii = torch.arange(ny, device=device)[:, None]
+    jj = torch.arange(nx, device=device)[None, :]
+    par = (ii + jj) % 2
+    return par == 0, par == 1
+
+
+def _sor_sweep(du, dv, Au, Av, Du, Dv, D, alpha, psis, colors):
+    """One red-black SOR sweep on the coupled (du, dv) system
+    (reference sor_iteration, src/brox_optic_flow_spatial.cpp:129-172);
+    returns (du, dv, sum of squared updates)."""
+    psi1, psi2, psi3, psi4 = psis
+    w = SOR_OMEGA
+    err = torch.zeros((), dtype=du.dtype, device=du.device)
+    for mask in colors:
+        div_du = (psi1 * _shift_clamp(du, 1, -2) + psi2 * _shift_clamp(du, -1, -2)
+                  + psi3 * _shift_clamp(du, 1, -1) + psi4 * _shift_clamp(du, -1, -1))
+        du_cand = (1.0 - w) * du + w * (Au - D * dv + alpha * div_du) / Du
+        du_new = torch.where(mask, du_cand, du)
+        div_dv = (psi1 * _shift_clamp(dv, 1, -2) + psi2 * _shift_clamp(dv, -1, -2)
+                  + psi3 * _shift_clamp(dv, 1, -1) + psi4 * _shift_clamp(dv, -1, -1))
+        dv_cand = (1.0 - w) * dv + w * (Av - D * du_new + alpha * div_dv) / Dv
+        dv_new = torch.where(mask, dv_cand, dv)
+        err = err + torch.sum((du_new - du) ** 2 + (dv_new - dv) ** 2)
+        du, dv = du_new, dv_new
+    return du, dv, err
+
+
+def _sor_solve(du, dv, Au, Av, Du, Dv, D, alpha, psis, colors, tol, size,
+               stop, maxiter=MAXITER_SOR, fused=None):
+    """Run SOR sweeps with the reference stopping rule
+    `sqrt(err/size) > TOL && nsor < 300`
+    (src/brox_optic_flow_spatial.cpp:315-389).  Returns (du, dv, nsor,
+    err) as tensors, err = sqrt(summed squared update / size) of the
+    last sweep: the scalars the reference prints when verbose
+    (`Iterations: nsor`, :392-394; robust-expo also prints the error,
+    src/robust_expo_methods.cpp:402-404).
+
+    By default (`fused` None or True) the solve is one call of the K7
+    wrapper `brox_sor_error`, on the card and on the CPU alike (where it
+    runs the kernel's plain version), with thresh = tol^2 * size and
+    stopping checked after every sweep.  `fused=False` runs the
+    `_sor_sweep` twin in a host loop instead."""
+    if fused is None or fused:
+        state = torch.stack([du, dv])[None]
+        const = torch.stack([Au, Av, Du, Dv, D, *psis])[None]
+        if stop == "error":
+            thresh = float(np.float32(tol * tol * size))
+        elif stop == "fixed":
+            thresh = -1.0
+        else:
+            raise ValueError(f"unknown stop mode {stop!r}")
+        state, err, n = brox_sor_error(state, const, thresh, maxiter, alpha)
+        return state[0, 0], state[0, 1], n[0], torch.sqrt(err[0] / size)
+    err = torch.tensor(1000.0, dtype=du.dtype, device=du.device)
+    nsor = 0
+    while nsor < maxiter and (stop == "fixed" or float(err) > tol):
+        du, dv, e = _sor_sweep(du, dv, Au, Av, Du, Dv, D, alpha, psis, colors)
+        err = torch.sqrt(e / size)
+        nsor += 1
+    return du, dv, torch.tensor(nsor, dtype=torch.int32, device=du.device), err
+
+
+def _warp6(planes, u, v, warp_mode, dmax):
+    """The (P, ny, nx) derivative planes warped by (u, v)."""
+    if warp_mode == "fast":
+        return warp_planes_bounded(planes, u, v, dmax)
+    return warp_planes(planes, u, v, border_out=True)
+
+
+def brox_scale(I1, I2, u, v, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
+               tol=DEFAULT_TOL, inner_iter=DEFAULT_INNER,
+               outer_iter=DEFAULT_OUTER, stop="error",
+               maxiter=MAXITER_SOR, with_diag=False, warp_mode="exact",
+               dmax=8):
+    """Single-scale Brox spatial flow (reference brox_optic_flow,
+    src/brox_optic_flow_spatial.cpp:179-444) on (ny, nx) images.
+
+    `with_diag=True` also returns {"iterations": (outer, inner) int32,
+    "warp_overflow_tiles": 0}: the SOR sweep counts the reference prints
+    when verbose (src/brox_optic_flow_spatial.cpp:392-394)."""
+    size = I1.numel()
+    eps2 = EPSILON * EPSILON
+    colors = _red_black(I1.shape, I1.device)
+
+    I1x, I1y = centered_gradient(I1)
+    I2x, I2y = centered_gradient(I2)
+    planes = torch.stack([I2, I2x, I2y, dxx(I2), dxy(I2), dyy(I2)])
+    nsors = []
+    for _ in range(outer_iter):
+        I2w, I2wx, I2wy, I2wxx, I2wxy, I2wyy = _warp6(planes, u, v,
+                                                      warp_mode, dmax)
+        ux, uy = centered_gradient(u)
+        vx, vy = centered_gradient(v)
+        psis_s = 1.0 / torch.sqrt(ux * ux + uy * uy + vx * vx + vy * vy + eps2)
+        psis = psi_divergence(psis_s)
+        div_u = psi_weighted_divergence(u, *psis)
+        div_v = psi_weighted_divergence(v, *psis)
+        div_d = alpha * (psis[0] + psis[1] + psis[2] + psis[3])
+
+        du = torch.zeros_like(u)
+        dv = torch.zeros_like(v)
+        for _ in range(inner_iter):
+            dI = I2w - I1 + I2wx * du + I2wy * dv
+            psid = 1.0 / torch.sqrt(dI * dI + eps2)
+            dIx = I2wx - I1x + I2wxx * du + I2wxy * dv
+            dIy = I2wy - I1y + I2wxy * du + I2wyy * dv
+            psig = 1.0 / torch.sqrt(dIx * dIx + dIy * dIy + eps2)
+
+            g = gamma * psig
+            dif = I2w - I1
+            dx = I2wx - I1x
+            dy = I2wy - I1y
+            Au = -psid * dif * I2wx - g * (dx * I2wxx + dy * I2wxy) + alpha * div_u
+            Av = -psid * dif * I2wy - g * (dx * I2wxy + dy * I2wyy) + alpha * div_v
+            Du = psid * I2wx * I2wx + g * (I2wxx * I2wxx + I2wxy * I2wxy) + div_d
+            Dv = psid * I2wy * I2wy + g * (I2wyy * I2wyy + I2wxy * I2wxy) + div_d
+            D = psid * I2wy * I2wx + g * (I2wxx + I2wyy) * I2wxy
+
+            du, dv, nsor, _ = _sor_solve(du, dv, Au, Av, Du, Dv, D, alpha,
+                                         psis, colors, tol, size, stop,
+                                         maxiter)
+            nsors.append(nsor)
+        u = u + du
+        v = v + dv
+    if with_diag:
+        its = torch.stack(nsors).reshape(outer_iter, inner_iter)
+        return u, v, {"iterations": its,
+                      "warp_overflow_tiles": torch.zeros((), dtype=torch.int32,
+                                                         device=u.device)}
+    return u, v
+
+
+def print_iterations(scale, diag, outer_iter, inner_iter, with_error=False):
+    """The reference binary's verbose lines for one solved level:
+    `Scale: %d`, then `Iterations: %d` (with ` Error: %g` for robust-expo)
+    per outer * inner iteration."""
+    print(f"Scale: {scale}", file=sys.stdout)
+    its = diag["iterations"].tolist()
+    errs = diag["error"].tolist() if with_error else None
+    for o in range(outer_iter):
+        for i in range(inner_iter):
+            line = f"Iterations: {int(its[o][i])}"
+            if with_error:
+                line += f" Error: {float(errs[o][i]):g}"
+            print(line, file=sys.stdout)
+
+
+def brox_spatial(I1, I2, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
+                 nscales=DEFAULT_NSCALES, zfactor=DEFAULT_ZFACTOR,
+                 tol=DEFAULT_TOL, inner_iter=DEFAULT_INNER,
+                 outer_iter=DEFAULT_OUTER, stop="error",
+                 maxiter=MAXITER_SOR, clamp_scales=True, verbose=False,
+                 with_diag=False, warp_mode="auto", max_motion=8,
+                 device=None):
+    """Multiscale Brox spatial flow (reference brox_optic_flow_spatial,
+    src/brox_optic_flow_spatial.cpp:451-549): (H, W) pair -> (u, v).
+
+    Inputs (tensors or arrays) are moved to `device` as float32; the
+    default device is the card, and with no card present the call
+    raises unless device="cpu" is given.
+
+    stop="error" stops each SOR solve at sqrt(err/size) <= tol (or
+    `maxiter` sweeps); stop="fixed" runs `maxiter` sweeps.  The
+    displacement bound of the fast warp at level s is
+    max(3, ceil(max_motion * zfactor**s)).  The levels run in a host
+    loop: the JAX package's whole-pyramid jit (`_brox_spatial_whole`,
+    a TPU-only single-program wrapper) has no counterpart here.
+
+    `verbose` prints the reference binary's stdout lines: `Scale: %d`
+    per level (src/brox_optic_flow_spatial.cpp:517-519) and
+    `Iterations: %d` per outer*inner iteration (:392-394).
+    `with_diag=True` returns (u, v, diags) with diags[s] =
+    {"iterations": (outer, inner) int32, "warp_overflow_tiles": 0} per
+    scale, finest first."""
+    I1, I2 = float32_inputs(device, I1, I2)
+    warp_mode = resolve_warp_mode(warp_mode, I1.device)
+    ny, nx = I1.shape[-2:]
+    if clamp_scales:
+        # reference main clamps on min(nx, ny) >= 16
+        # (src/brox_spatial_main.cpp:151-157)
+        nscales = clamp_nscales(nx, ny, zfactor, nscales, use_hypot=False)
+
+    diag = with_diag or verbose
+    diags = [None] * nscales
+
+    def solve(images, u, v, scale):
+        lvl1, lvl2 = images
+        dmax = max(3, math.ceil(max_motion * (zfactor ** scale)))
+        out = brox_scale(lvl1, lvl2, u, v, alpha, gamma, tol, inner_iter,
+                         outer_iter, stop, maxiter, with_diag=diag,
+                         warp_mode=warp_mode, dmax=dmax)
+        if diag:
+            diags[scale] = out[2]
+            if verbose:
+                print_iterations(scale, out[2], outer_iter, inner_iter)
+        return out[:2]
+
+    u, v, _ = run_pyramid((I1, I2), nscales, zfactor, solve,
+                          trace_name="brox_spatial")
+    if with_diag:
+        return u, v, diags
+    return u, v

@@ -49,6 +49,13 @@ def upsample_flow(u1, u2, out_size, zfactor):
     return zoom_in(u1, out_size) * inv, zoom_in(u2, out_size) * inv
 
 
+def default_flow_state(size, dtype, batch_shape=(), device=None):
+    """Zero (u1, u2) state at the coarsest level; `size` is (nx, ny)."""
+    nx, ny = size
+    z = torch.zeros(batch_shape + (ny, nx), dtype=dtype, device=device)
+    return {"u1": z, "u2": z}
+
+
 def default_upsample_state(state, out_size, zfactor):
     """Bicubic flow upsample of the u1/u2 keys; every other key passes
     through unchanged."""
@@ -56,7 +63,7 @@ def default_upsample_state(state, out_size, zfactor):
     return dict(state, u1=u1, u2=u2)
 
 
-def run_pyramid_state(images, nscales, zfactor, solve_scale, state_init,
+def run_pyramid_state(images, nscales, zfactor, solve_scale, state_init=None,
                       presmooth=PRESMOOTHING_SIGMA, preprocess="normalize",
                       upsample_state=default_upsample_state,
                       level_callback=None, resume=None, trace_name=None):
@@ -65,7 +72,8 @@ def run_pyramid_state(images, nscales, zfactor, solve_scale, state_init,
       preprocess    "normalize" = joint [0,255] (image_normalization_2,
                     reference src/utils.cpp:283-326), None = raw, or a
                     callable(images) -> images for custom schemes
-      state_init    fn(size=(nx,ny), dtype) -> dict at the coarsest size
+      state_init    fn(size=(nx,ny), dtype) -> dict at the coarsest size;
+                    None = `default_flow_state` on the images' device
       solve_scale   fn(images_at_scale, state, scale=s) -> state
       upsample_state  fn(state, out_size, zfactor) -> state one level up
       level_callback  fn(scale, state_dict) after each solved level
@@ -89,7 +97,10 @@ def run_pyramid_state(images, nscales, zfactor, solve_scale, state_init,
             state = upsample_state(state, sizes[start - 1], zfactor)
         start -= 1
     else:
-        state = state_init(sizes[-1], dtype)
+        if state_init is None:
+            state = default_flow_state(sizes[-1], dtype, device=device)
+        else:
+            state = state_init(sizes[-1], dtype)
         start = nscales - 1
     for s in range(start, -1, -1):
         with trace_scope(f"{trace_name or 'pyramid'}/level_{s}", device):
@@ -99,6 +110,33 @@ def run_pyramid_state(images, nscales, zfactor, solve_scale, state_init,
         if s > 0:
             state = upsample_state(state, sizes[s - 1], zfactor)
     return state
+
+
+def run_pyramid(images, nscales, zfactor, solve_scale,
+                presmooth=PRESMOOTHING_SIGMA, normalize=True,
+                level_callback=None, resume=None, trace_name=None):
+    """Build the pyramid and run `solve_scale` coarse -> fine.
+
+    (u1, u2)-state wrapper over `run_pyramid_state` for the two-field
+    solvers.  `solve_scale(images_at_scale, u1, u2, scale=s)` returns
+    (u1, u2) or (u1, u2, extras); the final level's extras are returned
+    as they are.  `level_callback(scale, {"u1": ..., "u2": ...})` runs
+    after each solved level; `resume=(scale, u1, u2)` restarts the
+    coarse-to-fine loop below `scale` from that already-solved flow."""
+    extras_box = [None]
+
+    def solve(level_images, state, scale):
+        out = solve_scale(level_images, state["u1"], state["u2"], scale=scale)
+        extras_box[0] = out[2:] if len(out) > 2 else None
+        return {"u1": out[0], "u2": out[1]}
+
+    if resume is not None:
+        resume = (resume[0], {"u1": resume[1], "u2": resume[2]})
+    state = run_pyramid_state(
+        images, nscales, zfactor, solve, presmooth=presmooth,
+        preprocess="normalize" if normalize else None,
+        level_callback=level_callback, resume=resume, trace_name=trace_name)
+    return state["u1"], state["u2"], extras_box[0]
 
 
 def _on(value, dtype, device):

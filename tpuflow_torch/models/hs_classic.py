@@ -11,7 +11,7 @@ iteration through `hs_classic_fused` (csrc/hs_classic.cu on the card);
 
 import torch
 
-from tpuflow_torch._device import resolve_device
+from tpuflow_torch._device import float32_inputs
 from tpuflow_torch.ops.gradients import _shift_clamp
 from tpuflow_torch.ops.hs_classic import hs_classic_fused
 
@@ -52,8 +52,6 @@ def hs_classic_batched(a, b, niter, alpha, device=None):
     default device is the card, and with no card present the call
     raises unless device="cpu" is given.  No normalisation, as in the
     reference."""
-    dev = resolve_device(device)
-    a = torch.as_tensor(a, device=dev).to(torch.float32)
-    b = torch.as_tensor(b, device=dev).to(torch.float32)
+    a, b = float32_inputs(device, a, b)
     Ex, Ey, Et = _input_derivatives(a, b)
     return hs_classic_fused(Ex, Ey, Et, alpha, niter)

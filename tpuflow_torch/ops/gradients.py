@@ -7,6 +7,8 @@
   * `divergence`        — backward differences, the adjoint: the first
     row/col uses +v, the last row/col uses -v[previous]
     (reference src/operators.cpp:35-78, Chambolle's discretization)
+  * `dxx`, `dyy`, `dxy` — second derivatives with clamped neighbours
+    (reference src/operators.cpp:263-328)
 
 All take (H, W) or (..., H, W) tensors and return the same shape/dtype.
 """
@@ -54,3 +56,25 @@ def divergence(v1, v2):
     div_y = b - torch.cat([torch.zeros_like(b[..., :1, :]), b[..., :-1, :]],
                           dim=-2)
     return div_x + div_y
+
+
+def dxx(I):
+    """Second x-derivative, [1 -2 1] horizontal (reference src/operators.cpp:263-280)."""
+    return _shift_clamp(I, -1, -1) - 2.0 * I + _shift_clamp(I, 1, -1)
+
+
+def dyy(I):
+    """Second y-derivative, [1 -2 1] vertical (reference src/operators.cpp:283-304)."""
+    return _shift_clamp(I, -1, -2) - 2.0 * I + _shift_clamp(I, 1, -2)
+
+
+def dxy(I):
+    """Mixed second derivative via the 4-point diagonal mask
+    (reference src/operators.cpp:307-328)."""
+    up = _shift_clamp(I, -1, -2)
+    dn = _shift_clamp(I, 1, -2)
+    ul = _shift_clamp(up, -1, -1)
+    ur = _shift_clamp(up, 1, -1)
+    dl = _shift_clamp(dn, -1, -1)
+    dr = _shift_clamp(dn, 1, -1)
+    return 0.25 * (ul - ur - dl + dr)

@@ -32,13 +32,11 @@ import ctypes
 
 import torch
 
-from tpuflow_torch import _build
 from tpuflow_torch.ops.gradients import _shift_clamp
+from tpuflow_torch.ops.sweeps import check_state_const, run_until_stopped
 
 SOR_OMEGA = 1.9  # reference src/horn_schunck_pyramidal.cpp:21
 D_FLOOR = 1e-30  # the TPU kernel's guard on Du, Dv (hs_pallas.py:107-110)
-# sweeps launched between two host reads of the `active` flags
-CHECK_EVERY = 16
 
 _SIGNATURES = {
     "hs_sor_run": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -113,21 +111,6 @@ def hs_sor_error_plain(state, const, thresh, max_iter, alpha2):
     return state, err, n
 
 
-def _check(state, const):
-    if state.ndim != 4 or state.shape[1] != 2:
-        raise ValueError(f"state must be (B, 2, ny, nx), got {tuple(state.shape)}")
-    B, _, ny, nx = state.shape
-    if tuple(const.shape) != (B, 5, ny, nx):
-        raise ValueError(f"const must be {(B, 5, ny, nx)}, got {tuple(const.shape)}")
-    for name, t in (("state", state), ("const", const)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if const.device != state.device:
-        raise ValueError(f"const is on {const.device}, state on {state.device}")
-
-
 def hs_sor_error(state, const, thresh, max_iter, alpha2):
     """Run one warp's SOR solve in place.
 
@@ -135,38 +118,14 @@ def hs_sor_error(state, const, thresh, max_iter, alpha2):
     const: (B, 5, ny, nx) = (Au, Av, Du, Dv, D) as `warp_const_hs_batched`
     gives them; thresh, max_iter, alpha2: Python scalars.
     Returns (state, err (B,) float32, n (B,) int32)."""
-    _check(state, const)
+    check_state_const(state, const, 2, 5)
     if state.device.type == "cpu":
         return hs_sor_error_plain(state, const, thresh, max_iter, alpha2)
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
-    B, _, ny, nx = state.shape
-    dev = state.device
-    err = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
-    n = torch.zeros((B,), dtype=torch.int32, device=dev)
-    active = torch.full((B,), int(max_iter > 0), dtype=torch.int32,
-                        device=dev)
-    if state.numel() == 0 or max_iter <= 0:
-        return state, err, n
-    lib = _build.load("hs_sor", _SIGNATURES)
-    partial = torch.empty(lib.hs_sor_partial_len(B, ny, nx),
-                          dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        done = 0
-        hs_sor_error.launches += 1
-        while done < max_iter:
-            sweeps = min(CHECK_EVERY, max_iter - done)
-            status = lib.hs_sor_run(
-                state.data_ptr(), const.data_ptr(), partial.data_ptr(),
-                partial.numel(), err.data_ptr(), n.data_ptr(),
-                active.data_ptr(), B, ny, nx, float(thresh), int(max_iter),
-                float(alpha2), sweeps, stream)
-            _build.check(status, "hs_sor_run")
-            done += sweeps
-            if done < max_iter and not bool(active.any()):
-                break
-    return state, err, n
+    return run_until_stopped(hs_sor_error, "hs_sor", _SIGNATURES, "hs_sor_run",
+                             "hs_sor_partial_len", state, const, thresh,
+                             max_iter, (alpha2,))
 
 
 hs_sor_error.launches = 0

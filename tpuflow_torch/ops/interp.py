@@ -14,9 +14,17 @@ results:
     `border_out=True` such pixels are 0 (src/bicubic_interpolation.cpp:352-374).
 
 `warp_stack` shares the 16 tap indices and weights across the planes.
+
+`warp_planes_bounded` is the solvers' fast warp: the displacement-
+bounded warp of K5 (tpuflow_torch.ops.warp), chosen by
+`resolve_warp_mode`.
 """
 
+import os
+
 import torch
+
+from tpuflow_torch.ops.warp import warp_planes_batched
 
 
 def _cubic(v0, v1, v2, v3, x):
@@ -71,3 +79,43 @@ def warp_planes(planes, u, v, border_out=True):
     jj = torch.arange(nx, dtype=planes.dtype, device=planes.device)[None, :]
     ii = torch.arange(ny, dtype=planes.dtype, device=planes.device)[:, None]
     return warp_stack(planes, jj + u, ii + v, border_out)
+
+
+def resolve_warp_mode(mode, device):
+    """Resolve warp_mode="auto" by device: "fast" (the bounded warp, K5
+    on the card) for CUDA tensors, "exact" (`warp_planes`) elsewhere, as
+    the JAX package takes its fast path only on the TPU.  The
+    TPUFLOW_EXACT_WARP environment variable forces "exact" everywhere."""
+    if os.environ.get("TPUFLOW_EXACT_WARP"):
+        return "exact"
+    if mode == "auto":
+        return "fast" if torch.device(device).type == "cuda" else "exact"
+    if mode not in ("fast", "exact"):
+        raise ValueError(f"unknown warp_mode {mode!r}")
+    return mode
+
+
+def warp_planes_bounded(planes, u, v, dmax, border_out=True,
+                        with_overflow=False):
+    """Displacement-bounded warp of a (P, H, W) stack by one flow field:
+    `warp_planes(..., border_out=True)` for flows whose integer
+    displacement stays within dmax, and 0 past the bound (the strict
+    bound of the JAX package's fast_only mode).
+
+    Runs `warp_planes_batched` (K5) at every size; its plain version
+    where the tensors lie on the CPU.  The JAX package's `rbud`,
+    `fast_only` and its TPUFLOW_WARP_RBUD / TPUFLOW_WARP_EXACT knobs only
+    tune the TPU kernel's two-window approximation, which the port does
+    not have (K5 is exact for every pixel), so they are left out.
+    `with_overflow=True` also returns the degraded-tile count, always 0.
+    `border_out=False` is tvl1occflow's shift-path warp, not ported yet."""
+    if not border_out:
+        raise NotImplementedError(
+            "warp_planes_bounded(border_out=False) is tvl1occflow's "
+            "shift-path warp (warp_planes_shift), to be ported with "
+            "tvl1occflow")
+    uv = torch.stack([u, v])[None]
+    out, oflow = warp_planes_batched(planes[None].contiguous(), uv, dmax)
+    if with_overflow:
+        return out[0], oflow
+    return out[0]

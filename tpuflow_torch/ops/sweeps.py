@@ -1,0 +1,76 @@
+"""Host side of the iterative kernels' per-sample stopping.
+
+K2 (csrc/tvl1_iterate.cu), K4 (csrc/hs_sor.cu) and K7 (csrc/brox_sor.cu)
+each export two C entry points: `<run>(state, const, partial,
+partial_len, err, n, active, B, ny, nx, thresh, max_iter, <scalars>,
+count, stream)`, which launches `count` iterations or sweeps, each ending
+in common.cuh's `stop_finalize`, and `<partial_len>(B, ny, nx)`, the
+length of their scratch.  `run_until_stopped` is the loop their wrappers
+share: it launches CHECK_EVERY iterations at a time and reads the
+per-sample `active` flags on the host between launches, so a solve ends
+at most CHECK_EVERY - 1 iterations after its last sample stopped (those
+launches return at once for inactive samples).
+"""
+
+import torch
+
+from tpuflow_torch import _build
+
+# iterations or sweeps launched between two host reads of `active`
+CHECK_EVERY = 16
+
+
+def check_state_const(state, const, n_state, n_const):
+    """Raise unless state is (B, n_state, ny, nx) and const (B, n_const,
+    ny, nx), both float32, contiguous and on one device."""
+    if state.ndim != 4 or state.shape[1] != n_state:
+        raise ValueError(f"state must be (B, {n_state}, ny, nx), got "
+                         f"{tuple(state.shape)}")
+    B, _, ny, nx = state.shape
+    if tuple(const.shape) != (B, n_const, ny, nx):
+        raise ValueError(f"const must be {(B, n_const, ny, nx)}, got "
+                         f"{tuple(const.shape)}")
+    for name, t in (("state", state), ("const", const)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if const.device != state.device:
+        raise ValueError(f"const is on {const.device}, state on {state.device}")
+
+
+def run_until_stopped(wrapper, library, signatures, run, partial_len, state,
+                      const, thresh, max_iter, scalars):
+    """Run kernel library `library`'s entry point `run` on CUDA tensors
+    until every sample stopped (err <= thresh) or ran max_iter
+    iterations, counting the launch on `wrapper`; `scalars` are the
+    kernel's float parameters.  Updates `state` in place and returns
+    (state, err (B,) float32, n (B,) int32)."""
+    B, _, ny, nx = state.shape
+    dev = state.device
+    err = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
+    n = torch.zeros((B,), dtype=torch.int32, device=dev)
+    active = torch.full((B,), int(max_iter > 0), dtype=torch.int32,
+                        device=dev)
+    if state.numel() == 0 or max_iter <= 0:
+        return state, err, n
+    lib = _build.load(library, signatures)
+    partial = torch.empty(getattr(lib, partial_len)(B, ny, nx),
+                          dtype=torch.float32, device=dev)
+    entry = getattr(lib, run)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        done = 0
+        wrapper.launches += 1
+        while done < max_iter:
+            count = min(CHECK_EVERY, max_iter - done)
+            status = entry(state.data_ptr(), const.data_ptr(),
+                           partial.data_ptr(), partial.numel(), err.data_ptr(),
+                           n.data_ptr(), active.data_ptr(), B, ny, nx,
+                           float(thresh), int(max_iter),
+                           *(float(s) for s in scalars), count, stream)
+            _build.check(status, run)
+            done += count
+            if done < max_iter and not bool(active.any()):
+                break
+    return state, err, n

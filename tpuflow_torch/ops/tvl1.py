@@ -28,12 +28,10 @@ import ctypes
 
 import torch
 
-from tpuflow_torch import _build
 from tpuflow_torch.ops.gradients import divergence, forward_gradient
+from tpuflow_torch.ops.sweeps import check_state_const, run_until_stopped
 
 GRAD_IS_ZERO = 1e-10  # reference src/tvl1flow.cpp:24
-# iterations launched between two host reads of the `active` flags
-CHECK_EVERY = 16
 
 _SIGNATURES = {
     "tvl1_iterate_run": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -94,21 +92,6 @@ def tvl1_iterate_error_plain(state, const, thresh, max_iter, l_t, theta,
     return state, err, n
 
 
-def _check(state, const):
-    if state.ndim != 4 or state.shape[1] != 6:
-        raise ValueError(f"state must be (B, 6, ny, nx), got {tuple(state.shape)}")
-    B, _, ny, nx = state.shape
-    if tuple(const.shape) != (B, 4, ny, nx):
-        raise ValueError(f"const must be {(B, 4, ny, nx)}, got {tuple(const.shape)}")
-    for name, t in (("state", state), ("const", const)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if const.device != state.device:
-        raise ValueError(f"const is on {const.device}, state on {state.device}")
-
-
 def tvl1_iterate_error(state, const, thresh, max_iter, l_t, theta, taut):
     """Run one warp's fixed point in place.
 
@@ -116,39 +99,15 @@ def tvl1_iterate_error(state, const, thresh, max_iter, l_t, theta, taut):
     contiguous, updated in place; const: (B, 4, ny, nx) =
     (I1wx, I1wy, rho_c, grad); thresh, max_iter: Python scalars.
     Returns (state, err (B,) float32, n (B,) int32)."""
-    _check(state, const)
+    check_state_const(state, const, 6, 4)
     if state.device.type == "cpu":
         return tvl1_iterate_error_plain(state, const, thresh, max_iter, l_t,
                                         theta, taut)
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
-    B, _, ny, nx = state.shape
-    dev = state.device
-    err = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
-    n = torch.zeros((B,), dtype=torch.int32, device=dev)
-    active = torch.full((B,), int(max_iter > 0), dtype=torch.int32,
-                        device=dev)
-    if state.numel() == 0 or max_iter <= 0:
-        return state, err, n
-    lib = _build.load("tvl1_iterate", _SIGNATURES)
-    partial = torch.empty(lib.tvl1_partial_len(B, ny, nx), dtype=torch.float32,
-                          device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        done = 0
-        tvl1_iterate_error.launches += 1
-        while done < max_iter:
-            iters = min(CHECK_EVERY, max_iter - done)
-            status = lib.tvl1_iterate_run(
-                state.data_ptr(), const.data_ptr(), partial.data_ptr(),
-                partial.numel(), err.data_ptr(), n.data_ptr(),
-                active.data_ptr(), B, ny, nx, float(thresh), int(max_iter),
-                float(l_t), float(theta), float(taut), iters, stream)
-            _build.check(status, "tvl1_iterate_run")
-            done += iters
-            if done < max_iter and not bool(active.any()):
-                break
-    return state, err, n
+    return run_until_stopped(tvl1_iterate_error, "tvl1_iterate", _SIGNATURES,
+                             "tvl1_iterate_run", "tvl1_partial_len", state,
+                             const, thresh, max_iter, (l_t, theta, taut))
 
 
 tvl1_iterate_error.launches = 0

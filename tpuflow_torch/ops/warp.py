@@ -1,10 +1,13 @@
-"""Fused bounded bicubic warp + per-warp constants: kernel and plain
-version.
+"""Bounded bicubic warp, alone or fused with per-warp constants: kernels
+and plain versions.
 
 Counterpart of tpuflow/ops/warp_pallas.py (`warp_const_pallas_batched`,
-modes "tvl1" and "hs").  The wrapper warps three planes (I, Ix, Iy) by
-the current flow and assembles one warp's constants in one pass, with
-`aux` the other image:
+modes "tvl1" and "hs", and `warp_planes_pallas_batched` with
+`fast_only=True`, mode "planes_fast").  K5, `warp_planes_batched`, warps
+any number P of planes by the current flow and assembles nothing (Brox
+and robust-expo warp I2 and its five derivative planes).  The fused
+wrappers warp three planes (I, Ix, Iy) by the current flow and assemble
+one warp's constants in one pass, with `aux` the other image:
 
   * "tvl1" (K1, `warp_const_batched`): planes (I1, I1x, I1y), aux = I0,
     (I1wx, I1wy, rho_c = I1w - I1wx*u - I1wy*v - I0, grad = I1wx^2 + I1wy^2)
@@ -33,11 +36,16 @@ pixel exactly and never degrades one: the overflow count it returns is
 always 0, kept so that `with_stats` reports the same keys as the JAX
 engine.
 
-One CUDA source (csrc/warp_const.cu) holds both modes as one template;
-each mode has its own wrapper and launch count, so a run can show K1
-and K3 apart.  On a CUDA tensor a wrapper launches the kernel (or
-raises); on a CPU tensor it runs `warp_const_plain`, the same
-arithmetic in PyTorch.
+The TPU's mode "planes" (not `fast_only`) differs only in the 2-px
+band past dmax, where it keeps the shift path's partial taps; it is not
+ported yet (ROADMAP).
+
+One CUDA source (csrc/warp_const.cu) holds the three: K1 and K3 as one
+template on the mode, K5 as a kernel sharing their Keys weights and
+in-domain test.  Each has its own wrapper and launch count, so a run
+can show them apart.  On a CUDA tensor a wrapper launches the kernel
+(or raises); on a CPU tensor it runs `warp_const_plain` or
+`warp_planes_plain`, the same arithmetic in PyTorch.
 """
 
 import ctypes
@@ -55,6 +63,10 @@ _SIGNATURES = {
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_void_p],
+    "warp_planes": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                    ctypes.c_void_p],
 }
 # mode -> (C entry point, constant planes)
 _MODES = {"tvl1": ("warp_const_tvl1", 4), "hs": ("warp_const_hs", 5)}
@@ -70,12 +82,10 @@ def _keys(t):
             0.5 * (t3 - t2))
 
 
-def warp_const_plain(planes, uv, aux, dmax, mode="tvl1", alpha2=0.0):
-    """Plain PyTorch version of the kernel; same contract as
-    `warp_const_batched`."""
-    if mode not in _MODES:
-        raise ValueError(f"unknown mode {mode!r}")
-    B, _, ny, nx = planes.shape
+def _bounded_bicubic(planes, uv, dmax):
+    """The exact bounded bicubic warp of every plane of (B, P, ny, nx)
+    `planes` by `uv`: (B, P, ny, nx), 0 out of domain."""
+    B, P, ny, nx = planes.shape
     dtype, dev = planes.dtype, planes.device
     u, v = uv[:, 0], uv[:, 1]
     jj = torch.arange(nx, dtype=dtype, device=dev)
@@ -92,16 +102,25 @@ def warp_const_plain(planes, uv, aux, dmax, mode="tvl1", alpha2=0.0):
     # out-of-domain pixels (zeroed below) inside the image
     xa = torch.nan_to_num(x0).clamp(-1, nx).long() - 1
     ya = torch.nan_to_num(y0).clamp(-1, ny).long() - 1
-    flat = planes.reshape(B, 3, ny * nx)
+    flat = planes.reshape(B, P, ny * nx)
     acc = torch.zeros_like(flat)
     for m in range(4):
         row = (ya + m).clamp(0, ny - 1) * nx
         for l in range(4):
             idx = (row + (xa + l).clamp(0, nx - 1)).reshape(B, 1, -1)
             w = (cy[m] * cx[l]).reshape(B, 1, -1)
-            acc = acc + w * torch.gather(flat, 2, idx.expand(B, 3, -1))
+            acc = acc + w * torch.gather(flat, 2, idx.expand(B, P, -1))
     acc = torch.where(in_dom.reshape(B, 1, -1), acc, torch.zeros_like(acc))
-    iw, iwx, iwy = acc.reshape(B, 3, ny, nx).unbind(1)
+    return acc.reshape(B, P, ny, nx)
+
+
+def warp_const_plain(planes, uv, aux, dmax, mode="tvl1", alpha2=0.0):
+    """Plain PyTorch version of the kernel; same contract as
+    `warp_const_batched`."""
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    u, v = uv[:, 0], uv[:, 1]
+    iw, iwx, iwy = _bounded_bicubic(planes, uv, dmax).unbind(1)
     if mode == "tvl1":
         rho_c = iw - iwx * u - iwy * v - aux
         grad = iwx * iwx + iwy * iwy
@@ -111,20 +130,31 @@ def warp_const_plain(planes, uv, aux, dmax, mode="tvl1", alpha2=0.0):
                         iwy * iwy + alpha2, iwx * iwy], dim=1), 0
 
 
+def warp_planes_plain(planes, uv, dmax):
+    """Plain PyTorch version of K5; same contract as
+    `warp_planes_batched`."""
+    return _bounded_bicubic(planes, uv, dmax), 0
+
+
 def _check(planes, uv, aux, dmax):
-    if planes.ndim != 4 or planes.shape[1] != 3:
-        raise ValueError(f"planes must be (B, 3, ny, nx), got {tuple(planes.shape)}")
+    """Shapes, types and layout of a warp's inputs; `aux` is None for K5,
+    whose planes may be any number P."""
+    if planes.ndim != 4 or (aux is not None and planes.shape[1] != 3):
+        want = "(B, 3, ny, nx)" if aux is not None else "(B, P, ny, nx)"
+        raise ValueError(f"planes must be {want}, got {tuple(planes.shape)}")
     B, _, ny, nx = planes.shape
     if tuple(uv.shape) != (B, 2, ny, nx):
         raise ValueError(f"uv must be {(B, 2, ny, nx)}, got {tuple(uv.shape)}")
-    if tuple(aux.shape) != (B, ny, nx):
+    if aux is not None and tuple(aux.shape) != (B, ny, nx):
         raise ValueError(f"aux must be {(B, ny, nx)}, got {tuple(aux.shape)}")
     for name, t in (("planes", planes), ("uv", uv), ("aux", aux)):
+        if t is None:
+            continue
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if t.device != planes.device:
             raise ValueError(f"{name} is on {t.device}, planes on {planes.device}")
-    if not planes.is_contiguous() or not aux.is_contiguous():
+    if not planes.is_contiguous() or not (aux is None or aux.is_contiguous()):
         raise ValueError("planes and aux must be contiguous")
     if B > 1 and uv.stride(0) < 2 * ny * nx or uv.stride()[1:] != (ny * nx, nx, 1):
         raise ValueError("uv must be contiguous within each sample")
@@ -132,14 +162,21 @@ def _check(planes, uv, aux, dmax):
         raise ValueError(f"dmax must be a non-negative integer, got {dmax}")
 
 
+def _on_card(t):
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return True
+
+
 def _launch(wrapper, mode, planes, uv, aux, dmax, alpha2):
     """Run `mode`'s kernel on a CUDA tensor (counting the launch on
     `wrapper`), its plain version on a CPU tensor."""
     _check(planes, uv, aux, dmax)
-    if planes.device.type == "cpu":
+    if not _on_card(planes):
         return warp_const_plain(planes, uv, aux, dmax, mode, alpha2)
-    if planes.device.type != "cuda":
-        raise ValueError(f"unsupported device {planes.device}")
     entry, nout = _MODES[mode]
     B, _, ny, nx = planes.shape
     out = torch.empty((B, nout, ny, nx), dtype=planes.dtype,
@@ -183,5 +220,30 @@ def warp_const_hs_batched(planes, uv, aux, dmax, alpha2):
                    alpha2)
 
 
+def warp_planes_batched(planes, uv, dmax):
+    """Bounded warp of P planes (K5).
+
+    planes: (B, P, ny, nx) float32 contiguous, any P; uv: (B, 2, ny, nx)
+    float32 flow (u, v), contiguous within each sample.  Returns
+    ((B, P, ny, nx) warped planes, 0 out of domain; overflow count = 0)."""
+    _check(planes, uv, None, dmax)
+    if not _on_card(planes):
+        return warp_planes_plain(planes, uv, dmax)
+    B, P, ny, nx = planes.shape
+    out = torch.empty_like(planes)
+    if out.numel() == 0:
+        return out, 0
+    lib = _build.load("warp_const", _SIGNATURES)
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.warp_planes(planes.data_ptr(), P, uv.data_ptr(),
+                                 uv.stride(0), out.data_ptr(), B, ny, nx,
+                                 int(dmax), stream)
+    warp_planes_batched.launches += 1
+    _build.check(status, "warp_planes")
+    return out, 0
+
+
 warp_const_batched.launches = 0
 warp_const_hs_batched.launches = 0
+warp_planes_batched.launches = 0

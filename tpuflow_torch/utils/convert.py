@@ -3,10 +3,12 @@
 The solvers have no weights: what carries across between the two
 packages is the coarse-to-fine state of a pyramid level, as the JAX
 engines' `level_callback` hands it out or as a level checkpoint holds
-it (numpy arrays `u1`, `u2` (B, ny, nx) and the int32 counter `oflow`).
+it (numpy arrays `u1`, `u2` (B, ny, nx) and the int32 counter `oflow`
+for the batched engines; `u1`, `u2` (ny, nx) for robust-expo).
 `resume_from_jax` turns such a state into the `resume=(scale, state)`
 argument of the port's engines, so a run started under JAX can finish
-on the card.
+on the card.  Brox spatial has no resume hook in either package, and no
+other state or weights to carry.
 """
 
 import numpy as np
@@ -16,9 +18,11 @@ from tpuflow_torch._device import resolve_device
 
 
 def resume_from_jax(scale, state_np, device=None):
-    """`(scale, state)` for `tvl1_batched(..., resume=...)` or
-    `hs_pyramidal_batched(..., resume=...)`, from a level state of the
-    JAX engine of the same name (both hand out {"u1", "u2", "oflow"}).
+    """`(scale, state)` for `tvl1_batched(..., resume=...)`,
+    `hs_pyramidal_batched(..., resume=...)` or `robust_expo(...,
+    resume=...)`, from a level state of the JAX function of the same
+    name (the batched engines hand out {"u1", "u2", "oflow"},
+    robust-expo {"u1", "u2"}).
 
     Flow fields become float32 tensors on `device` (default: the card);
     integer fields stay integer."""
