@@ -15,7 +15,11 @@ then runs these phases, each printing one JSON line:
      K4 (hs_sor), K5 (warp_planes), K6 (hs_classic) and K7 (brox_sor) at
      55x128, whose odd height puts the last row at the even parity.  K5
      warps Brox's six derivative planes; K7 solves the system that
-     `brox_scale` assembles from the synthetic flow.  The iterative
+     `brox_scale` assembles from the synthetic flow.  K5p
+     (warp_planes_shift) warps 3 and 6 of those planes at 436x1024 (dmax
+     8) and 6 at 55x128 (dmax 3, border_out on and off), by a flow with
+     bands 0.5 px inside to 4.5 px past the bound on both signs of both
+     axes.  The iterative
      kernels run a fixed count (K2, K4, K7: 8; K6: 100), then K2, K4 and
      K7 stop="error" from a zero flow or increment (n equal or off by
      one);
@@ -24,16 +28,27 @@ then runs these phases, each printing one JSON line:
      `hs_pyramidal_batched` (4 pairs, stop="error"),
      `hs_classic_batched` (4 pairs, 100 iterations, alpha 7), and the
      single-pair `brox_spatial` and `robust_expo` (gray, method 1) at the
-     reference CLI defaults (75 K5 launches and 75 K7 calls each);
+     reference CLI defaults (45 K5 launches at the three levels of at
+     least 96x96 px, 30 K5p launches at the two below, 75 K7 calls);
      kernels against plain versions (both on the card), the flow against
      the pairs' synthetic ground truth, and the HS, Brox and robust-expo
      solvers against the reference binary's goldens (tests/goldens/);
+     then the five CLIs (`python -m tpuflow_torch.cli.<name>`, run in
+     process) on the seed-100 pair written as PFM (robust_expo_methods:
+     as RGB PNG), tvl1flow also on gray PNG, tvl1flow and
+     horn_schunck_pyramidal also verbose; the PNGs' rows are filtered as
+     libpng filters them (mostly Paeth here): each `.flo` against the
+     direct solver call on the same inputs, the kernels each run
+     launched, seconds per call with the image IO, and the IO's seconds
+     alone;
   4. timing at the benchmark geometry: the batched engines at B=128
      (fields/s), the single-pair solvers on one pair (seconds per pair),
      each over 3 reps after one warm call, with peak device memory,
      where one call's time goes (per pyramid level, and by kernel under
      torch.profiler), and each kernel's time at level 0 against its
-     bound and its plain version.
+     bound and its plain version (the single-pair kernels from device
+     memory, L2 flushed before each call; K5p also at 55x128, where
+     Brox runs it).  A kernel read below its bound fails the run.
 
 Then the {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.  Every
@@ -42,10 +57,13 @@ card, or outside a checkout, it exits non-zero and prints no result.
 """
 
 import contextlib
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -68,6 +86,8 @@ K6_FLOPS_PX_ITER = 32
 # weights, 32 operations per plane); K7 for one sweep (two divergences,
 # two reciprocals and updates, the squared update)
 K5_FLOPS_PX_BASE, K5_FLOPS_PX_PLANE = 40, 32
+# K5p: K5's and 16 window compares
+K5P_FLOPS_PX_BASE = 56
 K7_FLOPS_PX = 40
 K1_PLANES = 6 + 4   # reads I1, I1x, I1y, u, v, I0; writes 4 constants
 K2_PLANES = 10 + 6  # reads 6 state + 4 constant planes; writes 6 state
@@ -84,6 +104,8 @@ CLASSIC_NITER, CLASSIC_ALPHA = 100, 7.0  # tools/bench_all7.py:83
 GOLDEN_DIR = Path(__file__).resolve().parent / "tests" / "goldens"
 GOLDENS = GOLDEN_DIR / "solvers.npz"
 BROX_DMAX0 = 8  # level 0's displacement bound at max_motion 8
+K5P_SHAPE = (55, 128)  # Brox's level 3 at 1024x436, its largest K5p level
+CLI_REPS = 3
 
 
 def emit(**fields):
@@ -275,6 +297,48 @@ def check_warp_planes(dev, ny, nx, dmax):
     return out
 
 
+def past_bound_flow(ny, nx, dmax, dev):
+    """synth_flow's (-u, -v) with bands of |u| (columns) and |v| (rows) at
+    dmax - 0.5 ... dmax + 4.5 px on both signs: each side of K5p's
+    window [-dmax-1, dmax+2] and the pixels beyond it."""
+    from tpuflow_torch.data import synth_flow
+
+    u, v = (-np.asarray(f, np.float32) for f in synth_flow(ny, nx))
+    mags = [s * (dmax + d) for d in (-0.5, 0.5, 1.5, 2.5, 3.5, 4.5)
+            for s in (1, -1)]
+    for k, mag in enumerate(mags, start=1):
+        c, r = k * nx // (len(mags) + 1), k * ny // (len(mags) + 1)
+        u[:, c:c + max(3, nx // 64)] = mag
+        v[r:r + max(2, ny // 64), :] = mag
+    return torch.stack([torch.from_numpy(u), torch.from_numpy(v)])[None].to(dev)
+
+
+def check_warp_planes_shift(dev, ny, nx, dmax, n_planes, border_out):
+    """K5p against its plain version on the first `n_planes` Brox planes
+    by `past_bound_flow`: equal within 1e-4 absolute (the kernel rounds
+    each operation as the plain version does, so 0 is expected)."""
+    from tpuflow_torch.ops.warp import (warp_planes_plain,
+                                        warp_planes_shift_batched,
+                                        warp_planes_shift_plain)
+
+    planes = brox_inputs(dev, ny, nx)[2][:, :n_planes].contiguous()
+    uv = past_bound_flow(ny, nx, dmax, dev)
+    got, oflow = warp_planes_shift_batched(planes, uv, dmax, border_out)
+    ref, _ = warp_planes_shift_plain(planes, uv, dmax, border_out)
+    strict, _ = warp_planes_plain(planes, uv, dmax)
+    torch.cuda.synchronize()
+    rel, err = rel_err(got, ref)
+    partial = (strict[:, 0] == 0) & (ref[:, 0] != 0)
+    out = {"shape": list(planes.shape), "dmax": dmax, "border_out": border_out,
+           "max_abs_err": err, "max_rel_err": rel,
+           "bit_equal": bool(torch.equal(got, ref)),
+           "partial_tap_share": float(partial.float().mean()),
+           "overflow": oflow}
+    if not err <= 1e-4 or oflow != 0 or not out["partial_tap_share"] > 0:
+        raise AssertionError(f"warp_planes_shift disagrees with its plain version: {out}")
+    return out
+
+
 @contextlib.contextmanager
 def swapped(swaps):
     """Set each (module, name) to a replacement inside the block."""
@@ -356,7 +420,8 @@ def plain_versions():
     from tpuflow_torch.ops.hs import hs_sor_error_plain
     from tpuflow_torch.ops.hs_classic import hs_classic_fused_plain
     from tpuflow_torch.ops.tvl1 import tvl1_iterate_error_plain
-    from tpuflow_torch.ops.warp import warp_const_plain, warp_planes_plain
+    from tpuflow_torch.ops.warp import (warp_const_plain, warp_planes_plain,
+                                        warp_planes_shift_plain)
 
     with swapped([(batch, "warp_const_batched", warp_const_plain),
                   (batch, "tvl1_iterate_error", tvl1_iterate_error_plain),
@@ -364,6 +429,7 @@ def plain_versions():
                   (batch, "hs_sor_error", hs_sor_error_plain),
                   (classic, "hs_classic_fused", hs_classic_fused_plain),
                   (interp, "warp_planes_batched", warp_planes_plain),
+                  (interp, "warp_planes_shift_batched", warp_planes_shift_plain),
                   (brox, "brox_sor_error", brox_sor_error_plain)]):
         yield
 
@@ -545,58 +611,107 @@ def pair_timing(engine, I0, I1, counters, groups, levels_via_callback):
     return out
 
 
-def device_ms(fn, n, keys=None):
-    """Device time of one call of `fn`, over n calls under
-    torch.profiler after one warm call: the kernels whose names contain
-    one of `keys` (every kernel if None).  At B = 1 a wrapper's host
-    work outlasts its kernel, so CUDA events around a run of calls would
-    time the host's enqueueing instead."""
+def device_ms(fn, n, per_call=None, flush_l2=True):
+    """Device time of one call of `fn` under torch.profiler, over n calls
+    after one warm call; and what the profiler recorded.  At B = 1 a
+    wrapper's host work outlasts its kernel, so CUDA events around a run
+    of calls would time the host's enqueueing instead.
+
+    With `per_call`, {part of a kernel name: launches per call}, and
+    `flush_l2`, each call is preceded by a read of a 128 MB buffer, so
+    that `fn` reads its inputs from device memory and not from the 50 MB
+    L2, as the bytes bound assumes (a read leaves no dirty lines to write
+    back during the kernel).  The time is the sum over the parts of the median duration
+    of the recorded kernels of that part times its launches per call:
+    the profiler records only part of a window's kernels on an H100's
+    sandboxed host, so a total over calls would read fast, and a median
+    is not moved by a few mistimed records.  The record gives, per part,
+    [kernels recorded, expected, min, median, max us].  Without
+    `per_call` (the plain versions, many kernels per call) the time is
+    the total device time over n, L2 warm, and the record is None."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    flush = (torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+             if per_call and flush_l2 else None)
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
+            if flush is not None:
+                flush.sum()
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA
-                and (keys is None or any(k in e.key for k in keys)))
-    return total / 1e3 / n
+    if not per_call:
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / n, None
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ms, record = 0.0, {}
+    for part, count in per_call.items():
+        us = np.array([e.time_range.elapsed_us() for e in kernels
+                       if part in e.name], dtype=np.float64)
+        if us.size == 0:
+            raise AssertionError(f"profiler recorded no kernel named *{part}*")
+        ms += float(np.median(us)) * count / 1e3
+        record[part] = [int(us.size), n * count, float(us.min()),
+                        float(np.median(us)), float(us.max())]
+    return ms, record
 
 
 def level0_brox(dev):
-    """K5 and K7 alone at level 0 of the 1024x436 pair: device ms per
-    launch (torch.profiler), the plain version's device ms, the bound,
-    and both calls' ms between CUDA events (host-bound here).  K7's unit
+    """K5, K5p and K7 alone at level 0 of the 1024x436 pair: device ms
+    per launch from device memory (`device_ms`, L2 flushed) with the
+    profiler's record, the plain version's device ms, the bound, and both
+    calls' ms between CUDA events (host-bound here).  K5 and K5p are
+    also read back to back with the level's 25 MB warm in the 50 MB L2.
+    K5p warps the six Brox planes by `past_bound_flow` (dmax 8), and also
+    at 55x128 (dmax 3), the largest level where Brox runs it.  K7's unit
     is one wrapper call of one fixed sweep (red, black, finalize); also
     its device ms per sweep in a 16-sweep call."""
     from tpuflow_torch.data import NX, NY
     from tpuflow_torch.ops.brox import brox_sor_error, brox_sor_error_plain
-    from tpuflow_torch.ops.warp import warp_planes_batched, warp_planes_plain
+    from tpuflow_torch.ops.warp import (warp_planes_batched, warp_planes_plain,
+                                        warp_planes_shift_batched,
+                                        warp_planes_shift_plain)
 
-    px = NY * NX
     out = {}
     _, _, planes, u, v = brox_inputs(dev, NY, NX)
-    uv = torch.stack([u, v])[None]
     P = planes.shape[1]
-
-    def k5():
-        return warp_planes_batched(planes, uv, BROX_DMAX0)
-
-    def k5_plain():
-        return warp_planes_plain(planes, uv, BROX_DMAX0)
-
-    k = {"ms": device_ms(k5, 50, ("warp_planes_kernel",)),
-         "plain_ms": device_ms(k5_plain, 5),
-         "call_ms": time_ms(k5, 50), "plain_call_ms": time_ms(k5_plain, 5),
-         "planes": P}
+    cases = {
+        "warp_planes_batched": (warp_planes_batched, warp_planes_plain,
+                                {"warp_planes_kernel": 1}, planes,
+                                torch.stack([u, v])[None], BROX_DMAX0,
+                                K5_FLOPS_PX_BASE),
+        "warp_planes_shift_batched": (
+            warp_planes_shift_batched, warp_planes_shift_plain,
+            {"warp_planes_shift_kernel": 1}, planes,
+            past_bound_flow(NY, NX, BROX_DMAX0, dev), BROX_DMAX0,
+            K5P_FLOPS_PX_BASE),
+    }
+    for name, (kernel, plain, part, p, f, dmax, flops) in cases.items():
+        k = {"shape": list(p.shape), "dmax": dmax}
+        k["ms"], k["profiler_us"] = device_ms(lambda: kernel(p, f, dmax), 50, part)
+        k["ms_l2_warm"], k["profiler_us_l2_warm"] = device_ms(
+            lambda: kernel(p, f, dmax), 50, part, flush_l2=False)
+        k["plain_ms"] = device_ms(lambda: plain(p, f, dmax), 5)[0]
+        k.update(call_ms=time_ms(lambda: kernel(p, f, dmax), 50),
+                 plain_call_ms=time_ms(lambda: plain(p, f, dmax), 5))
+        k["bound_ms"], k["bound_by"] = bound_ms(
+            NY * NX, 2 * P + 2, flops + K5_FLOPS_PX_PLANE * P)
+        out[name] = k
+    ny, nx = K5P_SHAPE
+    p = brox_inputs(dev, ny, nx)[2]
+    f = past_bound_flow(ny, nx, 3, dev)
+    k = {"shape": list(p.shape), "dmax": 3}
+    k["ms"], k["profiler_us"] = device_ms(
+        lambda: warp_planes_shift_batched(p, f, 3), 50,
+        {"warp_planes_shift_kernel": 1})
+    k["plain_ms"] = device_ms(lambda: warp_planes_shift_plain(p, f, 3), 5)[0]
     k["bound_ms"], k["bound_by"] = bound_ms(
-        px, 2 * P + 2, K5_FLOPS_PX_BASE + K5_FLOPS_PX_PLANE * P)
-    out["warp_planes_batched"] = k
+        ny * nx, 2 * P + 2, K5P_FLOPS_PX_BASE + K5_FLOPS_PX_PLANE * P)
+    out["warp_planes_shift_batched"]["at_55x128"] = k
+
     state, const, _, alpha = brox_system(dev, NY, NX, BROX_DMAX0)
-    keys = ("brox_sor_color", "stop_finalize")
 
     def k7(sweeps=1):
         return brox_sor_error(state, const, -1.0, sweeps, alpha)
@@ -604,12 +719,157 @@ def level0_brox(dev):
     def k7_plain():
         return brox_sor_error_plain(state, const, -1.0, 1, alpha)
 
-    k = {"ms": device_ms(k7, 50, keys),
-         "plain_ms": device_ms(k7_plain, 5),
-         "call_ms": time_ms(k7, 50), "plain_call_ms": time_ms(k7_plain, 5),
-         "ms_per_sweep_in_16": device_ms(lambda: k7(16), 10, keys) / 16}
-    k["bound_ms"], k["bound_by"] = bound_ms(px, K7_PLANES, K7_FLOPS_PX)
+    # one fixed sweep: red, black and finalize launches
+    k = {}
+    k["ms"], k["profiler_us"] = device_ms(
+        k7, 50, {"brox_sor_color": 2, "stop_finalize": 1})
+    k["plain_ms"] = device_ms(k7_plain, 5)[0]
+    k.update(call_ms=time_ms(k7, 50), plain_call_ms=time_ms(k7_plain, 5))
+    k["ms_per_sweep_in_16"] = device_ms(
+        lambda: k7(16), 10, {"brox_sor_color": 32, "stop_finalize": 16})[0] / 16
+    k["bound_ms"], k["bound_by"] = bound_ms(NY * NX, K7_PLANES, K7_FLOPS_PX)
     out["brox_sor_error"] = k
+    return out
+
+
+def cli_files(tmp):
+    """The seed-SEED0 synth_pair at 1024x436 written as PFM (I0.pfm,
+    I1.pfm), as 8-bit gray PNG (I0g.png, I1g.png) and as an RGB PNG whose
+    channels are I, 0.75 I + 32 and 255 - I (I0.png, I1.png); the PNGs'
+    rows filtered as libpng filters them.  Returns ({name: path},
+    {PNG name: rows per filter type None, Sub, Up, Average, Paeth})."""
+    from tpuflow_torch.data import NX, NY, synth_pair
+    from tpuflow_torch.io import write_image, write_pfm
+    from tpuflow_torch.io.image import _chunks
+
+    paths, filters = {}, {}
+    for name, im in zip(("I0", "I1"), synth_pair(NY, NX, seed=SEED0)):
+        paths[f"{name}.pfm"] = str(tmp / f"{name}.pfm")
+        write_pfm(paths[f"{name}.pfm"], im)
+        for png, arr in ((f"{name}g.png", im),
+                         (f"{name}.png", np.stack([im, 0.75 * im + 32, 255 - im],
+                                                  axis=-1))):
+            paths[png] = str(tmp / png)
+            arr = np.clip(np.round(arr), 0, 255).astype(np.uint8)
+            write_image(paths[png], arr)
+            data = Path(paths[png]).read_bytes()
+            rows = zlib.decompress(b"".join(d for t, d in _chunks(data, png)
+                                            if t == b"IDAT"))
+            ftype = np.frombuffer(rows, np.uint8)[::arr[0].size + 1]
+            filters[png] = np.bincount(ftype, minlength=5).tolist()
+    return paths, filters
+
+
+def quiet(fn):
+    """fn() with its stdout and stderr captured; (result, lines written)."""
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        result = fn()
+    return result, len(out.getvalue().splitlines()) + len(err.getvalue().splitlines())
+
+
+def main_path_cli(dev, counters, per_pair):
+    """The five CLIs at 1024x436 through the kernels (tvl1flow and
+    horn_schunck_pyramidal also verbose, tvl1flow also on gray PNG): per
+    run the launches (counts set to 0 just before it), the .flo against
+    the direct solver call on the inputs the CLI read (EPE <= 1e-5),
+    seconds per call, image IO included, over CLI_REPS calls after the
+    counted one, and apart the seconds of the IO alone (both inputs read
+    as the CLI reads them, the .flo written)."""
+    import tpuflow_torch.cli.brox_spatial as brox_cli
+    import tpuflow_torch.cli.horn_schunck_classic as classic_cli
+    import tpuflow_torch.cli.horn_schunck_pyramidal as hs_cli
+    import tpuflow_torch.cli.robust_expo_methods as robust_cli
+    import tpuflow_torch.cli.tvl1flow as tvl1_cli
+    from tpuflow_torch import (brox_spatial, hs_classic, hs_pyramidal,
+                               robust_expo, tvl1_multiscale)
+    from tpuflow_torch.io import read_flow, read_image, write_flow
+    from tpuflow_torch.ops.brox import brox_sor_error
+    from tpuflow_torch.ops.hs import hs_sor_error
+    from tpuflow_torch.ops.hs_classic import hs_classic_fused
+    from tpuflow_torch.ops.tvl1 import tvl1_iterate_error
+    from tpuflow_torch.ops.warp import (warp_const_batched,
+                                        warp_const_hs_batched,
+                                        warp_planes_batched,
+                                        warp_planes_shift_batched)
+
+    K5, K5p = warp_planes_batched, warp_planes_shift_batched
+
+    def rgb_planes(path):
+        return np.moveaxis(read_image(path, gray=False).astype(np.float32), -1, 0)
+
+    def gray(path):
+        return read_image(path, gray=True).astype(np.float32)
+
+    verbose_tvl1 = ["0", "0.25", "0.15", "0.3", "100", "0.5", "5", "0.01", "1"]
+    verbose_hs = ["0", "7", "10", "0.5", "10", "0.0001", "150", "1"]
+    # name: (CLI, argv before the output, input reader, direct call,
+    #        {kernel: launches} (None: at least one))
+    runs = {
+        "tvl1flow": (tvl1_cli, ["I0.pfm", "I1.pfm"], gray,
+                     lambda a, b: tvl1_multiscale(a, b)[:2],
+                     {warp_const_batched: None, tvl1_iterate_error: None}),
+        "tvl1flow_png": (tvl1_cli, ["I0g.png", "I1g.png"], gray,
+                         lambda a, b: tvl1_multiscale(a, b)[:2],
+                         {warp_const_batched: None, tvl1_iterate_error: None}),
+        "tvl1flow_verbose": (tvl1_cli, ["I0.pfm", "I1.pfm"], gray,
+                             lambda a, b: tvl1_multiscale(a, b, with_diag=True)[:2],
+                             {K5: None, K5p: None, tvl1_iterate_error: None},
+                             verbose_tvl1),
+        "horn_schunck_pyramidal": (hs_cli, ["I0.pfm", "I1.pfm"], gray,
+                                   lambda a, b: hs_pyramidal(a, b)[:2],
+                                   {warp_const_hs_batched: None, hs_sor_error: None}),
+        "horn_schunck_pyramidal_verbose": (
+            hs_cli, ["I0.pfm", "I1.pfm"], gray,
+            lambda a, b: hs_pyramidal(a, b, with_diag=True)[:2],
+            {K5: None, K5p: None, hs_sor_error: None}, verbose_hs),
+        "horn_schunck_classic": (classic_cli, [str(CLASSIC_NITER), str(CLASSIC_ALPHA),
+                                               "I0.pfm", "I1.pfm"], gray,
+                                 lambda a, b: hs_classic(a, b, CLASSIC_NITER,
+                                                         CLASSIC_ALPHA),
+                                 {hs_classic_fused: 1}),
+        "brox_spatial": (brox_cli, ["I0.pfm", "I1.pfm"], gray,
+                         lambda a, b: brox_spatial(a, b), per_pair),
+        "robust_expo_methods": (robust_cli, ["I0.png", "I1.png"], rgb_planes,
+                                lambda a, b: robust_expo(a, b), per_pair),
+    }
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths, out["png_rows_per_filter"] = cli_files(Path(tmp))
+        flo = str(Path(tmp) / "out.flo")
+        for name, (cli, head, reader, direct, expect, *tail) in runs.items():
+            argv = [paths.get(a, a) for a in head] + [flo] + (tail[0] if tail else [])
+            (rc, lines), seconds, launches = counted(
+                counters, lambda: quiet(lambda: cli.main(argv)))
+            reps = []
+            for _ in range(CLI_REPS):
+                t0 = time.perf_counter()
+                quiet(lambda: cli.main(argv))
+                torch.cuda.synchronize()
+                reps.append(time.perf_counter() - t0)
+            u, v = read_flow(flo)
+            io_reps = []
+            for _ in range(CLI_REPS):
+                t0 = time.perf_counter()
+                inputs = [reader(paths[a]) for a in head if a in paths]
+                write_flow(str(Path(tmp) / "io.flo"), u, v)
+                io_reps.append(time.perf_counter() - t0)
+            du, dv = (t.float().cpu().numpy() for t in direct(*inputs))
+            res = {"rc": rc, "lines_printed": lines, "first_call_s": seconds,
+                   "seconds_per_call": sum(reps) / len(reps), "rep_s": reps,
+                   "io_seconds_per_call": sum(io_reps) / len(io_reps),
+                   "launches": launches,
+                   "epe_vs_direct_call": float(np.hypot(u - du, v - dv).mean()),
+                   "finite": bool(np.isfinite(u).all() and np.isfinite(v).all()),
+                   "shape": list(u.shape)}
+            out[name] = res
+            wrong = {k.__name__: launches[k.__name__] for k, n in expect.items()
+                     if (launches[k.__name__] == 0 if n is None
+                         else launches[k.__name__] != n)}
+            if rc != 0 or not res["finite"] or not res["epe_vs_direct_call"] <= 1e-5:
+                raise AssertionError(f"CLI {name} failed or disagrees with its solver: {res}")
+            if wrong:
+                raise AssertionError(f"CLI {name}: launches {wrong} not as expected: {res}")
     return out
 
 
@@ -620,7 +880,9 @@ TVL1_GROUPS = (("warp_const", "K1 warp_const"), ("tvl1_primal", "K2 tvl1_iterate
 HS_GROUPS = (("warp_const", "K3 warp_const_hs"), ("hs_sor_color", "K4 hs_sor"),
              ("stop_finalize", "K4 hs_sor"), ("gemm", "zoom matmul"))
 CLASSIC_GROUPS = (("hs_classic_iteration", "K6 hs_classic"),)
-BROX_GROUPS = (("warp_planes", "K5 warp_planes"), ("brox_sor_color", "K7 brox_sor"),
+BROX_GROUPS = (("warp_planes_kernel", "K5 warp_planes"),
+               ("warp_planes_shift_kernel", "K5p warp_planes_shift"),
+               ("brox_sor_color", "K7 brox_sor"),
                ("stop_finalize", "K7 brox_sor"), ("gemm", "zoom matmul"))
 
 
@@ -786,15 +1048,17 @@ def main():
     from tpuflow_torch.ops.brox import brox_sor_error
     from tpuflow_torch.ops.hs import hs_sor_error
     from tpuflow_torch.ops.hs_classic import hs_classic_fused
-    from tpuflow_torch.ops.pyramid import clamp_nscales
+    from tpuflow_torch.ops.interp import K5_MIN_PIXELS
+    from tpuflow_torch.ops.pyramid import clamp_nscales, pyramid_sizes
     from tpuflow_torch.ops.tvl1 import tvl1_iterate_error
     from tpuflow_torch.ops.warp import (warp_const_batched,
                                         warp_const_hs_batched,
-                                        warp_planes_batched)
+                                        warp_planes_batched,
+                                        warp_planes_shift_batched)
 
-    if os.environ.get("TPUFLOW_EXACT_WARP"):
-        raise RuntimeError("TPUFLOW_EXACT_WARP is set: the Brox paths would "
-                           "not run K5")
+    for var in ("TPUFLOW_EXACT_WARP", "TPUFLOW_WARP_EXACT"):
+        if os.environ.get(var):
+            raise RuntimeError(f"{var} is set: the Brox paths would not run K5")
     dev = torch.device("cuda")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -820,6 +1084,11 @@ def main():
                              check_classic(dev, 55, 128)],
         "warp_planes_batched": [check_warp_planes(dev, 436, 1024, BROX_DMAX0),
                                 check_warp_planes(dev, 55, 128, 3)],
+        "warp_planes_shift_batched": [
+            check_warp_planes_shift(dev, 436, 1024, BROX_DMAX0, 3, True),
+            check_warp_planes_shift(dev, 436, 1024, BROX_DMAX0, 6, True),
+            check_warp_planes_shift(dev, *K5P_SHAPE, 3, 6, True),
+            check_warp_planes_shift(dev, *K5P_SHAPE, 3, 6, False)],
         "brox_sor_error": [check_brox_sor(dev, 436, 1024, BROX_DMAX0),
                            check_brox_sor(dev, 55, 128, 3)],
     }
@@ -827,8 +1096,8 @@ def main():
         emit(phase=f"{name}_vs_plain", checks=c)
 
     counters = (warp_const_batched, tvl1_iterate_error, warp_const_hs_batched,
-                hs_sor_error, warp_planes_batched, hs_classic_fused,
-                brox_sor_error)
+                hs_sor_error, warp_planes_batched, warp_planes_shift_batched,
+                hs_classic_fused, brox_sor_error)
     paths = {
         "tvl1": main_path(dev, counters, tvl1_batched,
                           (warp_const_batched, tvl1_iterate_error), 0.5,
@@ -846,9 +1115,14 @@ def main():
     }
     # the single-pair solvers at the reference CLI defaults: 5 levels at
     # 1024x436 (clamped on min(nx, ny)), 15 outer x 1 inner iterations,
-    # one K5 launch and one K7 call per outer iteration: 75 each
-    per_pair = {warp_planes_batched: 15 * clamp_nscales(NX, NY, 0.5, 10, use_hypot=False),
-                brox_sor_error: 15 * clamp_nscales(NX, NY, 0.5, 10, use_hypot=False)}
+    # one warp launch and one K7 call per outer iteration; the warp is K5
+    # on levels of at least 96x96 px (0-2), K5p below (3-4): 45 + 30, 75
+    levels = pyramid_sizes(NX, NY, 0.5, clamp_nscales(NX, NY, 0.5, 10,
+                                                      use_hypot=False))
+    big = sum(nx * ny >= K5_MIN_PIXELS for nx, ny in levels)
+    per_pair = {warp_planes_batched: 15 * big,
+                warp_planes_shift_batched: 15 * (len(levels) - big),
+                brox_sor_error: 15 * len(levels)}
     # the card gave EPE 0.0122 (Brox) and 0.0355 (robust-expo) against
     # the synthetic flow on an H100; 0.1 leaves room, as for HS
     paths["brox_spatial"] = pair_main_path(dev, counters, brox_spatial, 0.1,
@@ -867,6 +1141,8 @@ def main():
     for name, out in paths.items():
         emit(phase=f"main_path_{name}", **out)
     emit(phase="goldens_epe", **goldens)
+    emit(phase="main_path_cli", shape=[NY, NX], seed=SEED0,
+         runs=main_path_cli(dev, counters, per_pair))
     if not (goldens["hs_pyramidal"] <= 0.05 and goldens["hs_classic"] <= 1e-4
             and goldens["brox_spatial_s3"] <= 0.05
             and goldens["robust_expo_gray_m1"] <= 0.05):
@@ -898,6 +1174,7 @@ def main():
                "warp_const_hs_batched": "hs", "hs_sor_error": "hs",
                "hs_classic_fused": "hs_classic",
                "warp_planes_batched": "brox_spatial",
+               "warp_planes_shift_batched": "brox_spatial",
                "brox_sor_error": "brox_spatial"}
     sources = {
         "warp_const_batched": ("warp_const.cu", "warp_pallas.py:90", "max_abs_err"),
@@ -910,10 +1187,12 @@ def main():
                              "max_abs_err"),
         "warp_planes_batched": ("warp_const.cu", "warp_pallas.py:90",
                                 "max_abs_err"),
+        "warp_planes_shift_batched": ("warp_const.cu", "warp_pallas.py:90",
+                                      "max_abs_err"),
         "brox_sor_error": ("brox_sor.cu", "brox_pallas.py:50",
                            "fixed8_max_abs_err"),
     }
-    kernels = []
+    kernels, below = [], []
     for fn in counters:
         name = fn.__name__
         src, tpu, err_key = sources[name]
@@ -929,7 +1208,11 @@ def main():
             # no single PyTorch call computes any of these functions
             # (grid_sample's bicubic has a = -0.75 and other border rules)
             "library_ms": None})
+        if k["ms"] < k["bound_ms"]:
+            below.append(name)
     emit(kernels=kernels)
+    if below:
+        raise AssertionError(f"device times below their bound: {below}")
     print(smi, flush=True)
     emit(ok=True, device={"platform": "gpu",
                           "kind": torch.cuda.get_device_name(0),

@@ -31,7 +31,8 @@ from tpuflow_torch.ops.brox import brox_sor_error, brox_sor_error_plain
 from tpuflow_torch.ops.gradients import dxx, dxy, dyy
 from tpuflow_torch.ops.interp import (resolve_warp_mode, warp_planes,
                                       warp_planes_bounded)
-from tpuflow_torch.ops.warp import warp_planes_batched, warp_planes_plain
+from tpuflow_torch.ops.warp import (warp_planes_batched, warp_planes_plain,
+                                    warp_planes_shift_plain)
 
 torch.set_num_threads(2)
 
@@ -126,9 +127,14 @@ def test_warp_mode_and_bounded_options(warp_inputs, monkeypatch):
     _, oflow = warp_planes_bounded(planes[0], uv[0, 0], uv[0, 1], DMAX,
                                    with_overflow=True)
     assert oflow == 0
-    with pytest.raises(NotImplementedError, match="tvl1occflow"):
-        warp_planes_bounded(planes[0], uv[0, 0], uv[0, 1], DMAX,
-                            border_out=False)
+    # border_out=False (tvl1occflow's warp) runs K5p: the out-of-domain
+    # rim keeps its clamped taps instead of 0
+    keep = warp_planes_bounded(planes[0], uv[0, 0], uv[0, 1], DMAX,
+                               border_out=False)
+    ref, _ = warp_planes_shift_plain(planes[:1], uv[:1], DMAX,
+                                     border_out=False)
+    assert torch.equal(keep, ref[0])
+    assert bool((keep[0, :, 0] != 0).all())
 
 
 def test_warp_planes_rejects_bad_input(warp_inputs):

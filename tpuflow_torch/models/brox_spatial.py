@@ -19,16 +19,19 @@ src/brox_optic_flow_spatial.cpp + src/brox_spatial_mask.cpp, IPOL
     u += du (:398-401)
 
 Each outer iteration runs two kernels on the card:
-  * the warp of the six planes, `warp_planes_bounded` -> K5
-    (csrc/warp_const.cu, `warp_planes_batched`) when `warp_mode`
-    resolves to "fast", as "auto" does for CUDA tensors;
+  * the warp of the six planes, `warp_planes_bounded` when `warp_mode`
+    resolves to "fast", as "auto" does for CUDA tensors: K5
+    (csrc/warp_const.cu, `warp_planes_batched`) on levels of at least
+    96x96 px, K5p (`warp_planes_shift_batched`, the shift path's
+    function) below, where the JAX package takes its XLA shift path
+    (tpuflow/ops/interp.py:211);
   * each inner iteration's SOR solve, `_sor_solve` -> K7
-    (csrc/brox_sor.cu, `brox_sor_error`).
-Both run at EVERY level.  The JAX package warps on its XLA shift path
-and solves on XLA below 96x96 px (tpuflow/ops/interp.py:211,
-tpuflow/models/brox_spatial.py:123-125), where its kernels do not pay;
-the port has no such split.  On the CPU the wrappers run their plain
-versions, and "auto" resolves to the exact gather warp.
+    (csrc/brox_sor.cu, `brox_sor_error`), at EVERY level: the JAX
+    package solves on XLA below 96x96 px
+    (tpuflow/models/brox_spatial.py:123-125); the port has no such
+    split for the solve.
+On the CPU the wrappers run their plain versions, and "auto" resolves
+to the exact gather warp.
 
 `_sor_sweep` (masked full planes, quotients) is the reference-form twin
 that the plain version of K7 is tested against; `_sor_solve(...,
@@ -45,8 +48,7 @@ from tpuflow_torch._device import float32_inputs
 from tpuflow_torch.models.common import run_pyramid
 from tpuflow_torch.ops.brox import SOR_OMEGA, brox_sor_error
 from tpuflow_torch.ops.gradients import _shift_clamp, centered_gradient, dxx, dxy, dyy
-from tpuflow_torch.ops.interp import (resolve_warp_mode, warp_planes,
-                                      warp_planes_bounded)
+from tpuflow_torch.ops.interp import resolve_warp_mode, warp_by_mode
 from tpuflow_torch.ops.pyramid import clamp_nscales
 
 EPSILON = 0.001     # reference src/brox_optic_flow_spatial.cpp:23
@@ -154,13 +156,6 @@ def _sor_solve(du, dv, Au, Av, Du, Dv, D, alpha, psis, colors, tol, size,
     return du, dv, torch.tensor(nsor, dtype=torch.int32, device=du.device), err
 
 
-def _warp6(planes, u, v, warp_mode, dmax):
-    """The (P, ny, nx) derivative planes warped by (u, v)."""
-    if warp_mode == "fast":
-        return warp_planes_bounded(planes, u, v, dmax)
-    return warp_planes(planes, u, v, border_out=True)
-
-
 def brox_scale(I1, I2, u, v, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
                tol=DEFAULT_TOL, inner_iter=DEFAULT_INNER,
                outer_iter=DEFAULT_OUTER, stop="error",
@@ -181,8 +176,8 @@ def brox_scale(I1, I2, u, v, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
     planes = torch.stack([I2, I2x, I2y, dxx(I2), dxy(I2), dyy(I2)])
     nsors = []
     for _ in range(outer_iter):
-        I2w, I2wx, I2wy, I2wxx, I2wxy, I2wyy = _warp6(planes, u, v,
-                                                      warp_mode, dmax)
+        I2w, I2wx, I2wy, I2wxx, I2wxy, I2wyy = warp_by_mode(planes, u, v,
+                                                            warp_mode, dmax)
         ux, uy = centered_gradient(u)
         vx, vy = centered_gradient(v)
         psis_s = 1.0 / torch.sqrt(ux * ux + uy * uy + vx * vx + vy * vy + eps2)

@@ -4,9 +4,12 @@ Counterpart of tpuflow/models/hs_classic.py (reference
 src/horn_schunck_classic.cpp): the derivative stencils (2x2x2 cube
 averages, :47-75), the 12-point neighbourhood average (compute_bar,
 :79-95) and the fixed-count Jacobi iteration (hs_iteration, :99-122).
-All boundary handling is Neumann clamping.  The batched engine runs the
-iteration through `hs_classic_fused` (csrc/hs_classic.cu on the card);
-`_bar` is the reference-form twin its plain version is tested against.
+All boundary handling is Neumann clamping.  The batched engine and the
+single-pair `hs_classic` (what the horn_schunck_classic CLI calls) run
+the iteration through `hs_classic_fused` (K6, csrc/hs_classic.cu on the
+card, at B=1 for one pair, as tpuflow/models/hs_classic.py:57-66 does
+on the TPU); `_bar` is the reference-form twin its plain version is
+tested against, and `hs_classic(..., fused=False)` runs it.
 """
 
 import torch
@@ -55,3 +58,30 @@ def hs_classic_batched(a, b, niter, alpha, device=None):
     a, b = float32_inputs(device, a, b)
     Ex, Ey, Et = _input_derivatives(a, b)
     return hs_classic_fused(Ex, Ey, Et, alpha, niter)
+
+
+def hs_classic(a, b, niter, alpha, fused=None, device=None):
+    """`niter` iterations of classic Horn-Schunck on one (H, W) pair
+    (reference `hs`, src/horn_schunck_classic.cpp:125-149).  Returns
+    (u, v).
+
+    Inputs are moved to `device` as `hs_classic_batched` moves them.  By
+    default (`fused` None or True) the Jacobi solve is K6 at B=1 (its
+    plain version on the CPU); `fused=False` runs the reference-form
+    loop (a quotient by alpha^2 + Ex^2 + Ey^2 and `_bar`), on request
+    only."""
+    a, b = float32_inputs(device, a, b)
+    Ex, Ey, Et = _input_derivatives(a, b)
+    if fused is None or fused:
+        u, v = hs_classic_fused(Ex[None].contiguous(), Ey[None].contiguous(),
+                                Et[None].contiguous(), alpha, niter)
+        return u[0], v[0]
+    den = alpha * alpha + Ex * Ex + Ey * Ey
+    u = torch.zeros_like(a)
+    v = torch.zeros_like(a)
+    for _ in range(int(niter)):
+        ubar = _bar(u)
+        vbar = _bar(v)
+        t = (Ex * ubar + Ey * vbar + Et) / den
+        u, v = ubar - Ex * t, vbar - Ey * t
+    return u, v

@@ -1,7 +1,17 @@
-"""Pyramidal (warping) Horn-Schunck's 4-color SOR in reference form.
+"""Single-pair pyramidal (warping) Horn-Schunck, and its 4-color SOR in
+reference form.
 
-Counterpart of the sweep helpers of tpuflow/models/hs_pyramidal.py.  Per
-warp the linearised system constants are (reference
+Counterpart of tpuflow/models/hs_pyramidal.py.  `hs_pyramidal` is what
+the horn_schunck_pyramidal CLI calls.  Its plain call on the card (fast
+warp, stop="error", no verbose or diagnostics) is the batched engine at
+B=1 (`hs_pyramidal_batched`: K3 and K4 at every level), as the JAX
+package routes it.  Every other call runs `hs_scale` per level: each
+warp through `warp_planes_bounded` (K5 on planes of at least 96x96 px,
+K5p below) or the exact gather warp, the constants below in PyTorch,
+and the SOR solve through K4's wrapper `hs_sor_error` at B=1, stopping
+at err <= tol^2 * size (the reference's sqrt(err/size) <= tol).
+
+Per warp the linearised system constants are (reference
 src/horn_schunck_pyramidal.cpp:128-137)
 
     Au = (I1 - I2w + I2wx*u + I2wy*v) * I2wx      Du = I2wx^2 + alpha^2
@@ -23,10 +33,18 @@ updates are a true multicolor Gauss-Seidel sweep, stable at 1.9.
 is tested against.
 """
 
+import math
+import sys
+
+import numpy as np
 import torch
 
-from tpuflow_torch.ops.gradients import _shift_clamp
-from tpuflow_torch.ops.hs import SOR_OMEGA
+from tpuflow_torch._device import float32_inputs
+from tpuflow_torch.models.common import run_pyramid
+from tpuflow_torch.ops.gradients import _shift_clamp, centered_gradient
+from tpuflow_torch.ops.hs import SOR_OMEGA, hs_sor_error
+from tpuflow_torch.ops.interp import resolve_warp_mode, warp_by_mode
+from tpuflow_torch.ops.pyramid import clamp_nscales
 
 # CLI defaults, reference src/horn_schunck_pyramidal_main.cpp:24-33
 DEFAULT_ALPHA = 7.0
@@ -77,3 +95,111 @@ def _sor_sweep(u, v, Au, Av, Du, Dv, D, al, colors):
         err = err + torch.sum((u_new - u) ** 2 + (v_new - v) ** 2)
         u, v = u_new, v_new
     return u, v, err
+
+
+def hs_scale(I1, I2, u, v, alpha=DEFAULT_ALPHA, warps=DEFAULT_WARPS,
+             tol=DEFAULT_TOL, maxiter=DEFAULT_MAXITER, stop="error",
+             with_diag=False, warp_mode="exact", dmax=8):
+    """Single-scale warping Horn-Schunck (reference
+    horn_schunck_optical_flow, src/horn_schunck_pyramidal.cpp:78-249) on
+    float32 (ny, nx) images.  Every warp runs (no early exit).
+
+    `with_diag=True` also returns {"iterations": (warps,) int32,
+    "error": (warps,)}: each warp's sweep count and sqrt(err/size) of
+    its last sweep, the scalars the reference prints when verbose
+    (src/horn_schunck_pyramidal.cpp:233-235)."""
+    if stop not in ("error", "fixed"):
+        raise ValueError(f"unknown stop mode {stop!r}")
+    size = I1.numel()
+    alpha2 = alpha * alpha
+    thresh = (float(np.float32(tol * tol) * np.float32(size))
+              if stop == "error" else -1.0)
+    planes = torch.stack([I2, *centered_gradient(I2)])
+    state = torch.stack([u, v])[None].contiguous()
+    ns, errs = [], []
+    for _ in range(warps):
+        u, v = state[0, 0], state[0, 1]
+        I2w, I2wx, I2wy = warp_by_mode(planes, u, v, warp_mode, dmax)
+        dif = I1 - I2w + I2wx * u + I2wy * v
+        const = torch.stack([dif * I2wx, dif * I2wy, I2wx * I2wx + alpha2,
+                             I2wy * I2wy + alpha2, I2wx * I2wy])[None]
+        state, err, n = hs_sor_error(state, const, thresh, maxiter, alpha2)
+        ns.append(n[0])
+        errs.append(torch.sqrt(err[0] / size))
+    u, v = state[0, 0].clone(), state[0, 1].clone()
+    if with_diag:
+        return u, v, {"iterations": torch.stack(ns),
+                      "error": torch.stack(errs)}
+    return u, v
+
+
+def hs_pyramidal(I1, I2, alpha=DEFAULT_ALPHA, nscales=DEFAULT_NSCALES,
+                 zfactor=DEFAULT_ZFACTOR, warps=DEFAULT_WARPS,
+                 tol=DEFAULT_TOL, maxiter=DEFAULT_MAXITER, stop="error",
+                 clamp_scales=True, verbose=False, with_diag=False,
+                 warp_mode="auto", max_motion=8, device=None):
+    """Multiscale warping Horn-Schunck (reference horn_schunck_pyramidal,
+    src/horn_schunck_pyramidal.cpp:258-370): (H, W) pair -> (u, v).
+
+    Inputs (tensors or arrays) are moved to `device` as float32; the
+    default device is the card, and with no card present the call
+    raises unless device="cpu" is given.
+
+    `verbose` prints the reference binary's stderr lines: the multiscale
+    header (src/horn_schunck_pyramidal.cpp:274-277), `Scale: %d %dx%d`
+    per level (:326-328), and per warp `Warping %d: Iterations %d (%g)`
+    (:118-120, :233-235).  `with_diag=True` returns (u, v, diags) with
+    diags[s] the per-warp dict of `hs_scale` at scale s (finest first).
+    `warp_mode` as in `tvl1_multiscale`."""
+    I1, I2 = float32_inputs(device, I1, I2)
+    warp_mode = resolve_warp_mode(warp_mode, I1.device)
+    ny, nx = I1.shape[-2:]
+    if clamp_scales:
+        # the reference main clamps so the coarsest pyramid diagonal
+        # stays >= 16 px (src/horn_schunck_pyramidal_main.cpp:141-144)
+        nscales = clamp_nscales(nx, ny, zfactor, nscales, use_hypot=True)
+
+    if (warp_mode == "fast" and stop == "error" and not verbose
+            and not with_diag and I1.ndim == 2):
+        # the plain single-pair call (the CLI default): the batched engine
+        # at B=1, as tpuflow/models/hs_pyramidal.py:201-212 routes it
+        from tpuflow_torch.models.batch import hs_pyramidal_batched
+
+        u, v = hs_pyramidal_batched(I1[None], I2[None], alpha=alpha,
+                                    nscales=nscales, zfactor=zfactor,
+                                    warps=warps, tol=tol, maxiter=maxiter,
+                                    max_motion=max_motion, stop="error",
+                                    device=I1.device)
+        return u[0], v[0]
+
+    if verbose:
+        print(f"Multiscale Horn-Schunck of a {nx}x{ny} pair\n"
+              f"\ta={alpha:g} ns={nscales} zf={zfactor:g} nw={warps} "
+              f"eps={tol:g} mi={maxiter}", file=sys.stderr)
+
+    diag = with_diag or verbose
+    diags = [None] * nscales
+
+    def solve(images, u, v, scale):
+        lvl1, lvl2 = images
+        dmax = max(3, math.ceil(max_motion * (zfactor ** scale)))
+        u, v, *d = hs_scale(lvl1, lvl2, u, v, alpha, warps, tol, maxiter,
+                            stop, with_diag=diag, warp_mode=warp_mode,
+                            dmax=dmax)
+        if diag:
+            diags[scale] = d[0]
+            if verbose:
+                lny, lnx = lvl1.shape[-2:]
+                print(f"Scale: {scale} {lnx}x{lny}", file=sys.stderr)
+                its = d[0]["iterations"].tolist()
+                errs = d[0]["error"].tolist()
+                for w in range(warps):
+                    print(f"Warping {w}: Iterations {its[w]} ({errs[w]:g})",
+                          file=sys.stderr)
+        return u, v
+
+    u, v, _ = run_pyramid((I1, I2), nscales, zfactor, solve,
+                          trace_name="hs_pyramidal")
+    if with_diag:
+        return u, v, diags
+    return u, v

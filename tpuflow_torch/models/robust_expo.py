@@ -20,10 +20,11 @@ src/robust_expo_generic_tensor.cpp).  Same skeleton as Brox spatial
     INT, and the SOR error is normalized by nx*ny*nz
     (src/robust_expo_methods.cpp:527, :400).
 
-It runs the same two kernels as Brox spatial, at every level: K5 warps
-the 6 * C derivative planes (`warp_planes_bounded`), K7 solves each
-inner iteration (`tpuflow_torch.models.brox_spatial._sor_solve`).  The
-JAX package's split at 96x96 px (XLA below it) is not carried over.
+It runs the same kernels as Brox spatial: the warp of the 6 * C
+derivative planes (`warp_planes_bounded`: K5 on levels of at least
+96x96 px, K5p below, as the JAX package splits it), and K7 for each
+inner iteration at every level
+(`tpuflow_torch.models.brox_spatial._sor_solve`).
 
 The documented divergences of the JAX package from the reference are
 kept: the reference's buggy presmooth is replicated by
@@ -39,14 +40,13 @@ import torch
 
 from tpuflow_torch._device import float32_inputs
 from tpuflow_torch.models.brox_spatial import (MAXITER_SOR, _red_black,
-                                               _sor_solve, _warp6,
-                                               print_iterations,
+                                               _sor_solve, print_iterations,
                                                psi_divergence,
                                                psi_weighted_divergence)
 from tpuflow_torch.models.common import PRESMOOTHING_SIGMA, run_pyramid_state
 from tpuflow_torch.ops.gaussian import gaussian
 from tpuflow_torch.ops.gradients import centered_gradient, dxx, dxy, dyy
-from tpuflow_torch.ops.interp import resolve_warp_mode
+from tpuflow_torch.ops.interp import resolve_warp_mode, warp_by_mode
 from tpuflow_torch.ops.normalize import normalize_joint
 from tpuflow_torch.ops.pyramid import clamp_nscales
 
@@ -126,7 +126,7 @@ def robust_expo_scale(I1, I2, u, v, method_type=DEFAULT_METHOD,
     expo = exponential_diffusivity(I1x, I1y, method_type, alpha, lam)
     nsors, errs = [], []
     for _ in range(outer_iter):
-        warped = _warp6(planes, u, v, warp_mode, dmax).reshape(6, nz, ny, nx)
+        warped = warp_by_mode(planes, u, v, warp_mode, dmax).reshape(6, nz, ny, nx)
         I2w, I2wx, I2wy, I2wxx, I2wxy, I2wyy = warped.unbind(0)
 
         ux, uy = centered_gradient(u)

@@ -15,16 +15,21 @@ results:
 
 `warp_stack` shares the 16 tap indices and weights across the planes.
 
-`warp_planes_bounded` is the solvers' fast warp: the displacement-
-bounded warp of K5 (tpuflow_torch.ops.warp), chosen by
-`resolve_warp_mode`.
+`warp_planes_bounded` is the solvers' fast warp, chosen by
+`resolve_warp_mode`: the displacement-bounded warp of K5 on large
+planes and `warp_planes_shift` (K5p) on small ones, routed as the JAX
+package routes them (tpuflow_torch.ops.warp has both kernels).
 """
 
 import os
 
 import torch
 
-from tpuflow_torch.ops.warp import warp_planes_batched
+from tpuflow_torch.ops.warp import (warp_planes_batched,
+                                    warp_planes_shift_batched)
+
+# planes of at least this many pixels take K5 (tpuflow/ops/interp.py:211)
+K5_MIN_PIXELS = 96 * 96
 
 
 def _cubic(v0, v1, v2, v3, x):
@@ -95,27 +100,63 @@ def resolve_warp_mode(mode, device):
     return mode
 
 
-def warp_planes_bounded(planes, u, v, dmax, border_out=True,
+def warp_by_mode(planes, u, v, warp_mode, dmax):
+    """A (P, H, W) stack warped by (u, v) with border_out, as the solvers
+    warp: `warp_planes_bounded` for warp_mode "fast", the exact gather
+    `warp_planes` for "exact"."""
+    if warp_mode == "fast":
+        return warp_planes_bounded(planes, u, v, dmax)
+    return warp_planes(planes, u, v, border_out=True)
+
+
+def warp_planes_bounded(planes, u, v, dmax, border_out=True, fast_only=None,
                         with_overflow=False):
     """Displacement-bounded warp of a (P, H, W) stack by one flow field:
-    `warp_planes(..., border_out=True)` for flows whose integer
-    displacement stays within dmax, and 0 past the bound (the strict
-    bound of the JAX package's fast_only mode).
+    `warp_planes(..., border_out)` for flows whose integer displacement
+    stays within dmax.
 
-    Runs `warp_planes_batched` (K5) at every size; its plain version
-    where the tensors lie on the CPU.  The JAX package's `rbud`,
-    `fast_only` and its TPUFLOW_WARP_RBUD / TPUFLOW_WARP_EXACT knobs only
-    tune the TPU kernel's two-window approximation, which the port does
-    not have (K5 is exact for every pixel), so they are left out.
-    `with_overflow=True` also returns the degraded-tile count, always 0.
-    `border_out=False` is tvl1occflow's shift-path warp, not ported yet."""
-    if not border_out:
-        raise NotImplementedError(
-            "warp_planes_bounded(border_out=False) is tvl1occflow's "
-            "shift-path warp (warp_planes_shift), to be ported with "
-            "tvl1occflow")
-    uv = torch.stack([u, v])[None]
-    out, oflow = warp_planes_batched(planes[None].contiguous(), uv, dmax)
+    Routed as tpuflow/ops/interp.py:196-222 routes it: with `border_out`
+    and H*W >= 96*96 it runs K5 (`warp_planes_batched`, 0 past the
+    bound) when `fast_only`, else K5p; below that size, and for every
+    `border_out=False` call, it runs `warp_planes_shift` (K5p, partial
+    taps up to 3 px past the bound).  `fast_only` defaults to on, off
+    where the TPUFLOW_WARP_EXACT environment variable is set.  The two
+    are different functions past dmax, not two approximations of one:
+    K5 gives 0 there, K5p the taps inside its shift window.  Each runs
+    its plain version where the tensors lie on the CPU.
+
+    The JAX package's `rbud` and TPUFLOW_WARP_RBUD only size the TPU
+    kernel's residual windows, which the port does not have (both
+    kernels are exact for every pixel), so they are left out.
+    `with_overflow=True` also returns the degraded-tile count, always 0."""
+    if fast_only is None:
+        fast_only = not os.environ.get("TPUFLOW_WARP_EXACT")
+    H, W = planes.shape[-2:]
+    if border_out and fast_only and H * W >= K5_MIN_PIXELS:
+        uv = torch.stack([u, v])[None]
+        out, oflow = warp_planes_batched(planes[None].contiguous(), uv, dmax)
+        out = out[0]
+    else:
+        out, oflow = warp_planes_shift(planes, u, v, dmax, border_out), 0
     if with_overflow:
-        return out[0], oflow
+        return out, oflow
+    return out
+
+
+def warp_planes_shift(planes, u, v, dmax, border_out=True):
+    """Shift-window bounded warp of a (P, H, W) stack by one flow field
+    (K5p, `warp_planes_shift_batched`; tpuflow/ops/interp.py:225-342).
+
+    The 16-tap bicubic at the floor anchor, each tap counted only where
+    its offset from the pixel lies in [-dmax-1, dmax+2]: equal to
+    `warp_planes(..., border_out=True)` for flows within dmax, partial
+    taps up to 3 px past it, 0 beyond.  With `border_out=False`
+    (tvl1occflow's mode) out-of-domain pixels keep the bicubic value at
+    clamped tap indices (the reference's Neumann clamping for
+    non-negative coordinates; negative coordinates use the floor
+    anchor, not the reference's trunc anchor, a sub-pixel difference
+    confined to the one-cell image rim)."""
+    uv = torch.stack([u, v])[None]
+    out, _ = warp_planes_shift_batched(planes[None].contiguous(), uv, dmax,
+                                       border_out)
     return out[0]

@@ -2,11 +2,12 @@
 and plain versions.
 
 Counterpart of tpuflow/ops/warp_pallas.py (`warp_const_pallas_batched`,
-modes "tvl1" and "hs", and `warp_planes_pallas_batched` with
-`fast_only=True`, mode "planes_fast").  K5, `warp_planes_batched`, warps
-any number P of planes by the current flow and assembles nothing (Brox
-and robust-expo warp I2 and its five derivative planes).  The fused
-wrappers warp three planes (I, Ix, Iy) by the current flow and assemble
+modes "tvl1" and "hs", and `warp_planes_pallas_batched` in mode
+"planes_fast", `fast_only=True`, and mode "planes", `fast_only=False`).
+K5, `warp_planes_batched`, warps any number P of planes by the current
+flow and assembles nothing (Brox and robust-expo warp I2 and its five
+derivative planes); K5p, `warp_planes_shift_batched`, is the same warp
+with the shift path's bound (below).  The fused wrappers warp three planes (I, Ix, Iy) by the current flow and assemble
 one warp's constants in one pass, with `aux` the other image:
 
   * "tvl1" (K1, `warp_const_batched`): planes (I1, I1x, I1y), aux = I0,
@@ -36,16 +37,25 @@ pixel exactly and never degrades one: the overflow count it returns is
 always 0, kept so that `with_stats` reports the same keys as the JAX
 engine.
 
-The TPU's mode "planes" (not `fast_only`) differs only in the 2-px
-band past dmax, where it keeps the shift path's partial taps; it is not
-ported yet (ROADMAP).
+K5p is the function of the TPU's mode "planes" and of
+`tpuflow/ops/interp.py:warp_planes_shift`, a different function from
+K5: there is no strict bound.  Tap m of the row axis (tap row y0-1+m)
+counts only where its offset from the pixel, y0-1+m-i, lies in the
+shift window [-dmax-1, dmax+2], and likewise for columns; so a pixel up
+to 3 px past dmax keeps its in-window taps, and one further out is 0.
+Tap indices are clamped to the image.  With `border_out=True` the
+pixels with x+u < 1, x0 > nx-3, y+v < 1 or y0 > ny-3 are 0; with
+`border_out=False` (tvl1occflow's warp) they keep the clamped taps'
+sum, the reference's Neumann clamping.
 
-One CUDA source (csrc/warp_const.cu) holds the three: K1 and K3 as one
-template on the mode, K5 as a kernel sharing their Keys weights and
-in-domain test.  Each has its own wrapper and launch count, so a run
-can show them apart.  On a CUDA tensor a wrapper launches the kernel
-(or raises); on a CPU tensor it runs `warp_const_plain` or
-`warp_planes_plain`, the same arithmetic in PyTorch.
+One CUDA source (csrc/warp_const.cu) holds them all: K1 and K3 as one
+template on the mode, K5 as its own kernel sharing their Keys cell, and
+K5p as a kernel of its own, templated on border_out, with its own
+anchor, window masks, index clamps and rounding.  Each has its own wrapper and
+launch count, so a run can show them apart.  On a CUDA tensor a wrapper
+launches the kernel (or raises); on a CPU tensor it runs
+`warp_const_plain`, `warp_planes_plain` or `warp_planes_shift_plain`,
+the same arithmetic in PyTorch.
 """
 
 import ctypes
@@ -67,6 +77,10 @@ _SIGNATURES = {
                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
                     ctypes.c_int, ctypes.c_int, ctypes.c_int,
                     ctypes.c_void_p],
+    "warp_planes_shift": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                          ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_void_p],
 }
 # mode -> (C entry point, constant planes)
 _MODES = {"tvl1": ("warp_const_tvl1", 4), "hs": ("warp_const_hs", 5)}
@@ -82,9 +96,11 @@ def _keys(t):
             0.5 * (t3 - t2))
 
 
-def _bounded_bicubic(planes, uv, dmax):
-    """The exact bounded bicubic warp of every plane of (B, P, ny, nx)
-    `planes` by `uv`: (B, P, ny, nx), 0 out of domain."""
+def _bounded_bicubic(planes, uv, dmax, strict=True, border_out=True):
+    """The bounded bicubic warp of every plane of (B, P, ny, nx) `planes`
+    by `uv`: (B, P, ny, nx).  `strict`: K5's bound, 0 past dmax and out
+    of domain; else K5p's shift window, with out-of-domain pixels 0 only
+    if `border_out`."""
     B, P, ny, nx = planes.shape
     dtype, dev = planes.dtype, planes.device
     u, v = uv[:, 0], uv[:, 1]
@@ -94,14 +110,21 @@ def _bounded_bicubic(planes, uv, dmax):
     yy = ii + v
     x0 = torch.floor(xx)
     y0 = torch.floor(yy)
-    in_dom = ((xx >= 1) & (x0 <= nx - 3) & (yy >= 1) & (y0 <= ny - 3)
-              & ((x0 - jj).abs() <= dmax) & ((y0 - ii).abs() <= dmax))
+    in_dom = (xx >= 1) & (x0 <= nx - 3) & (yy >= 1) & (y0 <= ny - 3)
     cx = _keys(xx - x0)
     cy = _keys(yy - y0)
-    # in-domain taps never clamp; the clamp only keeps the gathers of
-    # out-of-domain pixels (zeroed below) inside the image
-    xa = torch.nan_to_num(x0).clamp(-1, nx).long() - 1
-    ya = torch.nan_to_num(y0).clamp(-1, ny).long() - 1
+    if strict:
+        in_dom = in_dom & ((x0 - jj).abs() <= dmax) & ((y0 - ii).abs() <= dmax)
+        # in-domain taps never clamp; the clamp only keeps the gathers of
+        # out-of-domain pixels (zeroed below) inside the image
+        lo_x, hi_x, lo_y, hi_y = -1, nx, -1, ny
+    else:
+        cx = _window(cx, x0 - jj, dmax)
+        cy = _window(cy, y0 - ii, dmax)
+        # wide enough that every clamped tap index stays as it was
+        lo_x, hi_x, lo_y, hi_y = -4, nx + 3, -4, ny + 3
+    xa = torch.nan_to_num(x0).clamp(lo_x, hi_x).long() - 1
+    ya = torch.nan_to_num(y0).clamp(lo_y, hi_y).long() - 1
     flat = planes.reshape(B, P, ny * nx)
     acc = torch.zeros_like(flat)
     for m in range(4):
@@ -110,8 +133,21 @@ def _bounded_bicubic(planes, uv, dmax):
             idx = (row + (xa + l).clamp(0, nx - 1)).reshape(B, 1, -1)
             w = (cy[m] * cx[l]).reshape(B, 1, -1)
             acc = acc + w * torch.gather(flat, 2, idx.expand(B, P, -1))
-    acc = torch.where(in_dom.reshape(B, 1, -1), acc, torch.zeros_like(acc))
+    if border_out:
+        acc = torch.where(in_dom.reshape(B, 1, -1), acc, torch.zeros_like(acc))
     return acc.reshape(B, P, ny, nx)
+
+
+def _window(c, rel, dmax):
+    """Keys weights `c` with tap m zeroed where its offset from the pixel,
+    rel - 1 + m, leaves the shift window [-dmax-1, dmax+2] (a NaN offset
+    leaves it)."""
+    out = []
+    for m, w in enumerate(c):
+        off = rel - 1 + m
+        keep = (off >= -dmax - 1) & (off <= dmax + 2)
+        out.append(torch.where(keep, w, torch.zeros_like(w)))
+    return tuple(out)
 
 
 def warp_const_plain(planes, uv, aux, dmax, mode="tvl1", alpha2=0.0):
@@ -134,6 +170,13 @@ def warp_planes_plain(planes, uv, dmax):
     """Plain PyTorch version of K5; same contract as
     `warp_planes_batched`."""
     return _bounded_bicubic(planes, uv, dmax), 0
+
+
+def warp_planes_shift_plain(planes, uv, dmax, border_out=True):
+    """Plain PyTorch version of K5p; same contract as
+    `warp_planes_shift_batched`."""
+    return _bounded_bicubic(planes, uv, dmax, strict=False,
+                            border_out=border_out), 0
 
 
 def _check(planes, uv, aux, dmax):
@@ -220,6 +263,24 @@ def warp_const_hs_batched(planes, uv, aux, dmax, alpha2):
                    alpha2)
 
 
+def _launch_planes(wrapper, entry, planes, uv, dmax, *extra):
+    """Run K5 or K5p (C entry point `entry`, trailing int arguments
+    `extra`) on CUDA tensors, counting the launch on `wrapper`."""
+    B, P, ny, nx = planes.shape
+    out = torch.empty_like(planes)
+    if out.numel() == 0:
+        return out, 0
+    lib = _build.load("warp_const", _SIGNATURES)
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = getattr(lib, entry)(planes.data_ptr(), P, uv.data_ptr(),
+                                     uv.stride(0), out.data_ptr(), B, ny, nx,
+                                     int(dmax), *extra, stream)
+    wrapper.launches += 1
+    _build.check(status, entry)
+    return out, 0
+
+
 def warp_planes_batched(planes, uv, dmax):
     """Bounded warp of P planes (K5).
 
@@ -229,21 +290,25 @@ def warp_planes_batched(planes, uv, dmax):
     _check(planes, uv, None, dmax)
     if not _on_card(planes):
         return warp_planes_plain(planes, uv, dmax)
-    B, P, ny, nx = planes.shape
-    out = torch.empty_like(planes)
-    if out.numel() == 0:
-        return out, 0
-    lib = _build.load("warp_const", _SIGNATURES)
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.warp_planes(planes.data_ptr(), P, uv.data_ptr(),
-                                 uv.stride(0), out.data_ptr(), B, ny, nx,
-                                 int(dmax), stream)
-    warp_planes_batched.launches += 1
-    _build.check(status, "warp_planes")
-    return out, 0
+    return _launch_planes(warp_planes_batched, "warp_planes", planes, uv,
+                          dmax)
+
+
+def warp_planes_shift_batched(planes, uv, dmax, border_out=True):
+    """Shift-window bounded warp of P planes (K5p).
+
+    Same inputs as `warp_planes_batched`.  Returns ((B, P, ny, nx) warped
+    planes, overflow count = 0): taps outside the window [-dmax-1,
+    dmax+2] of each pixel weigh 0, and out-of-domain pixels are 0 if
+    `border_out`, else the sum of their clamped taps."""
+    _check(planes, uv, None, dmax)
+    if not _on_card(planes):
+        return warp_planes_shift_plain(planes, uv, dmax, border_out)
+    return _launch_planes(warp_planes_shift_batched, "warp_planes_shift",
+                          planes, uv, dmax, int(bool(border_out)))
 
 
 warp_const_batched.launches = 0
 warp_const_hs_batched.launches = 0
 warp_planes_batched.launches = 0
+warp_planes_shift_batched.launches = 0
