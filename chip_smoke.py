@@ -13,7 +13,11 @@ then runs these phases, each printing one JSON line:
      B=1 for the single-pair solvers') and a small level:
      K1 (warp_const) and K2 (tvl1_iterate) at 7x16; K3 (warp_const_hs),
      K4 (hs_sor), K5 (warp_planes), K6 (hs_classic) and K7 (brox_sor) at
-     55x128, whose odd height puts the last row at the even parity.  K5
+     55x128, whose odd height puts the last row at the even parity; K4
+     also at 218x512 and 109x256 (its route "tiles", at sizes no tile
+     divides) and 7x16 (its route "level" at the smallest level; 55x128
+     takes it too), each check naming its route; K6 also 13 and 1
+     iterations at 436x1024 and 100 at 109x257 (no tile divides it).  K5
      warps Brox's six derivative planes; K7 solves the system that
      `brox_scale` assembles from the synthetic flow.  K5p
      (warp_planes_shift) warps 3 and 6 of those planes at 436x1024 (dmax
@@ -48,7 +52,9 @@ then runs these phases, each printing one JSON line:
      torch.profiler), and each kernel's time at level 0 against its
      bound and its plain version (the single-pair kernels from device
      memory, L2 flushed before each call; K5p also at 55x128, where
-     Brox runs it).  A kernel read below its bound fails the run.
+     Brox runs it; K4's route "level" alone: one warp's whole solve at
+     55x128, B=128; and the HS call's sweeps needed against launched).
+     A kernel read below its bound fails the run.
 
 Then the {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.  Every
@@ -217,6 +223,10 @@ def check_iterative(dev, ny, nx, dmax, mode):
     planes, state, aux, const = kernel_inputs(*pairs(B_CHECK, ny, nx, dev),
                                               dev, dmax, mode)
     out = {"shape": [B_CHECK, ny, nx]}
+    if mode == "hs":
+        from tpuflow_torch.ops.hs import device_route
+
+        out["route"] = device_route(ny, nx)
     got, _, n = kernel(state.clone(), const, -1.0, 8, *args)
     ref, _, n_ref = plain(state.clone(), const, -1.0, 8, *args)
     torch.cuda.synchronize()
@@ -241,17 +251,19 @@ def check_iterative(dev, ny, nx, dmax, mode):
     return out
 
 
-def check_classic(dev, ny, nx):
-    """K6 against its plain version, 100 iterations from zero flow."""
+def check_classic(dev, ny, nx, niter=CLASSIC_NITER):
+    """K6 against its plain version, `niter` iterations from zero flow."""
     from tpuflow_torch.models.hs_classic import _input_derivatives
     from tpuflow_torch.ops.hs_classic import (hs_classic_fused,
-                                              hs_classic_fused_plain)
+                                              hs_classic_fused_plain,
+                                              launch_steps)
 
     d = _input_derivatives(*pairs(B_CHECK, ny, nx, dev))
-    got = torch.stack(hs_classic_fused(*d, CLASSIC_ALPHA, CLASSIC_NITER), 1)
-    ref = torch.stack(hs_classic_fused_plain(*d, CLASSIC_ALPHA, CLASSIC_NITER), 1)
+    got = torch.stack(hs_classic_fused(*d, CLASSIC_ALPHA, niter), 1)
+    ref = torch.stack(hs_classic_fused_plain(*d, CLASSIC_ALPHA, niter), 1)
     torch.cuda.synchronize()
-    out = {"shape": [B_CHECK, ny, nx], "niter": CLASSIC_NITER,
+    out = {"shape": [B_CHECK, ny, nx], "niter": niter,
+           "launch_steps": launch_steps(niter),
            "max_abs_err": float((got - ref).abs().max())}
     # f32 Jacobi, FMA-contracted on the card, on flows of about 3 px
     if not out["max_abs_err"] <= 1e-4:
@@ -503,6 +515,26 @@ def sweeps_launched(its, max_iter=300):
     from tpuflow_torch.ops.sweeps import CHECK_EVERY
 
     return sum(min(-(-n // CHECK_EVERY) * CHECK_EVERY, max_iter) for n in its)
+
+
+def hs_sweeps(its, ny, nx, cap=150):
+    """Per level of an HS engine call with stats `its`, [sweeps needed,
+    sweeps launched]: a warp needs its slowest sample's count; route
+    "tiles" launches that rounded up to CHECK_EVERY (within the cap),
+    route "level" no more than it needs."""
+    from tpuflow_torch.ops.hs import device_route
+    from tpuflow_torch.ops.pyramid import pyramid_sizes
+    from tpuflow_torch.ops.sweeps import CHECK_EVERY
+
+    sizes = pyramid_sizes(nx, ny, 0.5, len(its))
+    out = {}
+    for s, warps in sorted(its.items()):
+        lnx, lny = sizes[int(s)]
+        need = [max(n) for n in warps]
+        launched = ([min(-(-k // CHECK_EVERY) * CHECK_EVERY, cap) for k in need]
+                    if device_route(lny, lnx) == "tiles" else need)
+        out[str(s)] = [sum(need), sum(launched)]
+    return out
 
 
 def pair_main_path(dev, counters, engine, synth_bound, expect, **kw):
@@ -877,9 +909,10 @@ def main_path_cli(dev, counters, per_pair):
 TVL1_GROUPS = (("warp_const", "K1 warp_const"), ("tvl1_primal", "K2 tvl1_iterate"),
                ("tvl1_dual", "K2 tvl1_iterate"), ("stop_finalize", "K2 tvl1_iterate"),
                ("gemm", "zoom matmul"))
-HS_GROUPS = (("warp_const", "K3 warp_const_hs"), ("hs_sor_color", "K4 hs_sor"),
+HS_GROUPS = (("warp_const", "K3 warp_const_hs"), ("hs_sor_tiles", "K4 hs_sor"),
+             ("hs_sor_level", "K4 hs_sor"), ("hs_sor_settle", "K4 hs_sor"),
              ("stop_finalize", "K4 hs_sor"), ("gemm", "zoom matmul"))
-CLASSIC_GROUPS = (("hs_classic_iteration", "K6 hs_classic"),)
+CLASSIC_GROUPS = (("hs_classic_block", "K6 hs_classic"),)
 BROX_GROUPS = (("warp_planes_kernel", "K5 warp_planes"),
                ("warp_planes_shift_kernel", "K5p warp_planes_shift"),
                ("brox_sor_color", "K7 brox_sor"),
@@ -946,6 +979,8 @@ def engine_timing(engine, I0, I1, counters, groups, pyramid=True, **kw):
         out["per_level_warps_inner"] = {
             str(s): [len(w), sum(max(n) for n in w)]
             for s, w in sorted(its.items())}
+        if engine.__name__ == "hs_pyramidal_batched":
+            out["sweeps_needed_launched"] = hs_sweeps(its, *I0.shape[-2:])
     else:
         engine(I0, I1, **kw)
     torch.cuda.synchronize()
@@ -1018,6 +1053,7 @@ def level0_kernels(dev, I0, I1):
          "ms_per_sweep_in_16": time_ms(lambda: hs_sor_error(
              state, const, -1.0, 16, HS_ALPHA2), 5) / 16}
     k["bound_ms"], k["bound_by"] = bound_ms(px, K4_PLANES, K4_FLOPS_PX)
+    k["level_solve_55x128"] = level_solve(dev, I0.shape[0])
     out["hs_sor_error"] = k
     del planes, state, aux, const
 
@@ -1034,6 +1070,39 @@ def level0_kernels(dev, I0, I1):
     k["bytes_bound_ms_per_iteration"] = bound_ms(px, 7, 0)[0]
     out["hs_classic_fused"] = k
     return out
+
+
+def level_solve(dev, batch, ny=55, nx=128):
+    """K4's route "level" alone: one warp's whole solve at (ny, nx) (level
+    3 of 1024x436) for `batch` pairs from zero flow at the main path's
+    threshold (tol 1e-4, at most 150 sweeps), ms per call (CUDA events)
+    against its bound (the inputs read and u, v written once; the
+    operations of the sweeps this run's samples needed) and the plain
+    version's ms."""
+    from tpuflow_torch.ops.hs import (device_route, hs_sor_error,
+                                      hs_sor_error_plain)
+    from tpuflow_torch.ops.warp import warp_const_plain
+
+    planes, state, aux, _ = kernel_inputs(*pairs(batch, ny, nx, dev), dev, 3,
+                                          "hs")
+    state.zero_()
+    const, _ = warp_const_plain(planes, state, aux, 3, "hs", HS_ALPHA2)
+    thresh = float(np.float32(1e-4 * 1e-4) * np.float32(ny * nx))
+    _, _, n = hs_sor_error(state.clone(), const, thresh, 150, HS_ALPHA2)
+    _, _, n_ref = hs_sor_error_plain(state.clone(), const, thresh, 150, HS_ALPHA2)
+    if not bool(((n - n_ref).abs() <= 1).all()):
+        raise AssertionError("level solve: stopping counts differ by more than 1")
+    k = {"shape": [batch, ny, nx], "route": device_route(ny, nx),
+         "sweeps_max": int(n.max()), "sweeps_sum": int(n.sum()),
+         "ms": time_ms(lambda: hs_sor_error(state.clone(), const, thresh, 150,
+                                            HS_ALPHA2), 10),
+         "plain_ms": time_ms(lambda: hs_sor_error_plain(
+             state.clone(), const, thresh, 150, HS_ALPHA2), 2)}
+    t_bytes = batch * ny * nx * K4_PLANES * 4 / HBM_BYTES_PER_S
+    t_ops = ny * nx * K4_FLOPS_PX * int(n.sum()) / FP32_FLOPS
+    k["bound_ms"] = 1e3 * max(t_bytes, t_ops)
+    k["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return k
 
 
 def main():
@@ -1078,10 +1147,20 @@ def main():
                                check_iterative(dev, 7, 16, 3, "tvl1")],
         "warp_const_hs_batched": [check_warp(dev, 436, 1024, 8, "hs"),
                                   check_warp(dev, 55, 128, 3, "hs")],
+        # route "tiles" at level 0 and at 109x256 and 218x512, sizes no
+        # tile divides; route "level" at 55x128 and 7x16
         "hs_sor_error": [check_iterative(dev, 436, 1024, 8, "hs"),
-                         check_iterative(dev, 55, 128, 3, "hs")],
+                         check_iterative(dev, 218, 512, 4, "hs"),
+                         check_iterative(dev, 109, 256, 3, "hs"),
+                         check_iterative(dev, 55, 128, 3, "hs"),
+                         check_iterative(dev, 7, 16, 3, "hs")],
+        # niter not a multiple of the kernel's 8 per launch (100, 13), one
+        # iteration, and a size no tile divides
         "hs_classic_fused": [check_classic(dev, 436, 1024),
-                             check_classic(dev, 55, 128)],
+                             check_classic(dev, 55, 128),
+                             check_classic(dev, 436, 1024, 13),
+                             check_classic(dev, 436, 1024, 1),
+                             check_classic(dev, 109, 257)],
         "warp_planes_batched": [check_warp_planes(dev, 436, 1024, BROX_DMAX0),
                                 check_warp_planes(dev, 55, 128, 3)],
         "warp_planes_shift_batched": [

@@ -82,17 +82,26 @@ def build_all(names=KERNELS, verbose=False):
     return out
 
 
-def load(name, signatures):
+def load(name, signatures, geometry=None):
     """The ctypes handle of kernel library `name`, built on first use.
 
     `signatures` maps each C entry point to its argtypes; every entry
-    point returns the `cudaError_t` of its launches as an int."""
+    point returns the `cudaError_t` of its launches as an int (or the
+    int it documents).  `geometry`, (entry point, values), is the tile
+    geometry the wrapper states: when the library loads, entry point
+    `fn(k)` must give values[k] for every k, or this raises."""
     lib = _loaded.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build_all((name,))[name]))
         for fn, argtypes in signatures.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        if geometry is not None:
+            fn, expected = geometry
+            got = tuple(getattr(lib, fn)(k) for k in range(len(expected)))
+            if got != tuple(expected):
+                raise RuntimeError(f"tpuflow_torch: {fn} gives {got}, the "
+                                   f"wrapper states {tuple(expected)}")
         _loaded[name] = lib
     return lib
 

@@ -114,6 +114,21 @@ def tvl1_scale(I0, I1, u1, u2, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
     return u1, u2
 
 
+def _resume_state(resume):
+    """`resume` as `run_pyramid_state` takes it, (scale, state dict),
+    from JAX's (scale, u1, u2) or from (scale, state dict)."""
+    if resume is None:
+        return None
+    if isinstance(resume, (tuple, list)):
+        if len(resume) == 3:
+            scale, u1, u2 = resume
+            return scale, {"u1": u1, "u2": u2}
+        if len(resume) == 2 and isinstance(resume[1], dict):
+            return tuple(resume)
+    raise ValueError("resume must be (scale, u1, u2) or (scale, "
+                     "{'u1': ..., 'u2': ...})")
+
+
 def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
                     theta=DEFAULT_THETA, nscales=DEFAULT_NSCALES,
                     zfactor=DEFAULT_ZFACTOR, warps=DEFAULT_WARPS,
@@ -133,7 +148,8 @@ def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
     `clamp_scales` applies the CLI's auto-clamp so the coarsest level
     stays >= 16 px along the diagonal (src/tvl1flow_main.cpp:185-187).
     `level_callback(scale, {"u1", "u2"})` runs after each level;
-    `resume=(scale, state)` restarts below an already-solved level (see
+    `resume` restarts below an already-solved level, given as JAX's
+    `(scale, u1, u2)` or as `(scale, {"u1": ..., "u2": ...})` (see
     tpuflow_torch.utils.convert.resume_from_jax).  `verbose` prints the
     reference binary's stderr lines: `Scale %d: %dx%d` per level
     (src/tvl1flow.cpp:284-286) and `Warping: %d, Iterations: %d, Error:
@@ -144,6 +160,7 @@ def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
     "auto" (default) = fast on the card, exact elsewhere
     (tpuflow_torch.ops.interp.resolve_warp_mode)."""
     I0, I1 = float32_inputs(device, I0, I1)
+    resume = _resume_state(resume)
     warp_mode = resolve_warp_mode(warp_mode, I0.device)
     ny, nx = I0.shape[-2:]
     if clamp_scales:

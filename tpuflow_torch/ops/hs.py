@@ -20,32 +20,57 @@ The arithmetic is the TPU kernel's (hs_pallas.py:107-171), not
 then a product, and the separable Laplacian (hu + hd)/12 + (h + up + dn)/6
 of `neighbour_sums`.
 
-On a CUDA tensor the wrapper launches csrc/hs_sor.cu (five kernels per
-sweep, see the note there) or raises; on a CPU tensor it runs
-`hs_sor_error_plain`.  Both update `state` IN PLACE and return it.  The
-kernel sums `err` in another order than PyTorch, so a sample's `n` may
-differ from the plain version's by one where `err` lands next to
-`thresh`.
+On a CUDA tensor the wrapper launches csrc/hs_sor.cu or raises; on a
+CPU tensor it runs `hs_sor_error_plain`.  Both update `state` IN PLACE
+and return it.  The kernel has two routes, which `hs_sor_route` picks
+from the level's size and the device's shared memory (see the note in
+the source): "tiles", one fused launch per sweep on tiles of `TILE`
+pixels with a halo of `HALO`, color k updated on the interior grown by
+3 - k pixels; and "level", the whole solve of a sample in one block
+that holds the level's `LEVEL_PLANES` planes.  The kernel sums `err` in
+another order than PyTorch, so a sample's `n` may differ from the plain
+version's by one where `err` lands next to `thresh`.
 """
 
 import ctypes
 
 import torch
 
+from tpuflow_torch import _build
 from tpuflow_torch.ops.gradients import _shift_clamp
-from tpuflow_torch.ops.sweeps import check_state_const, run_until_stopped
+from tpuflow_torch.ops.sweeps import check_state_const, launch_until_stopped
 
 SOR_OMEGA = 1.9  # reference src/horn_schunck_pyramidal.cpp:21
 D_FLOOR = 1e-30  # the TPU kernel's guard on Du, Dv (hs_pallas.py:107-110)
 
+# the kernel's geometry, as csrc/hs_sor.cu states it (checked when the
+# library loads): route "tiles"' interior (rows, columns) and the halo
+# of u and v; route "level"'s planes (u, v, Au, Av, rdu, rdv, D) and the
+# bytes of shared scratch beside them
+TILE = (16, 56)
+HALO = 4
+LEVEL_PLANES = 7
+LEVEL_SCRATCH = 512
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "hs_sor_run": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                   ctypes.c_void_p],
-    "hs_sor_partial_len": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    "hs_sor_run": [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I,
+                   _F, _I, _F, _I, _P],
+    "hs_sor_partial_len": [_I, _I, _I],
+    "hs_sor_finish": [_P, _P, _P, _I, _I, _I, _P],
+    "hs_sor_solve": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _P],
+    "hs_sor_smem_optin": [],
+    "hs_sor_geometry": [_I],
 }
+
+
+def hs_sor_route(ny, nx, smem_bytes):
+    """The kernel's route for an (ny, nx) level on a device whose blocks
+    may use `smem_bytes` of shared memory: "level" (the whole solve in
+    one block per sample) where the level's planes and the scratch fit,
+    else "tiles" (one fused launch per sweep)."""
+    fits = LEVEL_PLANES * 4 * ny * nx + LEVEL_SCRATCH <= smem_bytes
+    return "level" if fits else "tiles"
 
 
 def neighbour_sums(f):
@@ -54,7 +79,7 @@ def neighbour_sums(f):
     dn) with h the left + right pair of the pixel's row, hu and hd the
     pairs of the rows above and below, up and dn the pixels above and
     below.  The direct neighbours sum to h + up + dn, the diagonal ones
-    to hu + hd (csrc/common.cuh:neighbours12)."""
+    to hu + hd (csrc/hs_sor.cu:laplacian12, csrc/hs_classic.cu)."""
     h = _shift_clamp(f, -1, -1) + _shift_clamp(f, 1, -1)
     return (h, _shift_clamp(h, -1, -2), _shift_clamp(h, 1, -2),
             _shift_clamp(f, -1, -2), _shift_clamp(f, 1, -2))
@@ -111,6 +136,17 @@ def hs_sor_error_plain(state, const, thresh, max_iter, alpha2):
     return state, err, n
 
 
+def _library():
+    return _build.load("hs_sor", _SIGNATURES, (
+        "hs_sor_geometry", (*TILE, HALO, LEVEL_PLANES, LEVEL_SCRATCH)))
+
+
+def device_route(ny, nx):
+    """`hs_sor_route` on the current CUDA device (builds the kernel
+    library on first use)."""
+    return hs_sor_route(ny, nx, _library().hs_sor_smem_optin())
+
+
 def hs_sor_error(state, const, thresh, max_iter, alpha2):
     """Run one warp's SOR solve in place.
 
@@ -123,9 +159,40 @@ def hs_sor_error(state, const, thresh, max_iter, alpha2):
         return hs_sor_error_plain(state, const, thresh, max_iter, alpha2)
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
-    return run_until_stopped(hs_sor_error, "hs_sor", _SIGNATURES, "hs_sor_run",
-                             "hs_sor_partial_len", state, const, thresh,
-                             max_iter, (alpha2,))
+    B, _, ny, nx = state.shape
+    dev = state.device
+    err = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
+    n = torch.zeros((B,), dtype=torch.int32, device=dev)
+    if state.numel() == 0 or max_iter <= 0:
+        return state, err, n
+    lib = _library()
+    thresh, max_iter, alpha2 = float(thresh), int(max_iter), float(alpha2)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        hs_sor_error.launches += 1
+        if device_route(ny, nx) == "level":
+            _build.check(lib.hs_sor_solve(
+                state.data_ptr(), const.data_ptr(), err.data_ptr(),
+                n.data_ptr(), B, ny, nx, thresh, max_iter, alpha2, stream),
+                "hs_sor_solve")
+            return state, err, n
+        scratch = torch.empty_like(state)
+        partial = torch.empty(lib.hs_sor_partial_len(B, ny, nx),
+                              dtype=torch.float32, device=dev)
+        active = torch.ones((B,), dtype=torch.int32, device=dev)
+
+        def sweeps(count):
+            _build.check(lib.hs_sor_run(
+                state.data_ptr(), scratch.data_ptr(), const.data_ptr(),
+                partial.data_ptr(), partial.numel(), err.data_ptr(),
+                n.data_ptr(), active.data_ptr(), B, ny, nx, thresh, max_iter,
+                alpha2, count, stream), "hs_sor_run")
+
+        launch_until_stopped(sweeps, active, max_iter)
+        _build.check(lib.hs_sor_finish(state.data_ptr(), scratch.data_ptr(),
+                                       n.data_ptr(), B, ny, nx, stream),
+                     "hs_sor_finish")
+    return state, err, n
 
 
 hs_sor_error.launches = 0

@@ -13,9 +13,12 @@ average with Neumann folds.  The arithmetic is the TPU kernel's
 bar = (h + up + dn)/6 + (hu + hd)/12 over the same neighbour sums as
 the SOR kernel's Laplacian (`tpuflow_torch.ops.hs.neighbour_sums`).
 
-On a CUDA tensor `hs_classic_fused` launches csrc/hs_classic.cu (one
-launch per iteration over ping-pong buffers, see the note there) or
-raises; on a CPU tensor it runs `hs_classic_fused_plain`.
+On a CUDA tensor `hs_classic_fused` launches csrc/hs_classic.cu or
+raises; on a CPU tensor it runs `hs_classic_fused_plain`.  The kernel
+is temporally blocked: each launch runs `STEPS` iterations on tiles of
+`TILE` pixels held in shared memory with a halo of `STEPS` pixels
+(`launch_steps` gives the iterations of each launch; see the note in
+the source).
 """
 
 import ctypes
@@ -25,12 +28,26 @@ import torch
 from tpuflow_torch import _build
 from tpuflow_torch.ops.hs import neighbour_sums
 
+# the kernel's geometry, as csrc/hs_classic.cu states it (checked when
+# the library loads): a block's interior (rows, columns), and the
+# Jacobi iterations of one launch, which are also the halo's width
+TILE = (40, 48)
+STEPS = 8
+
 _SIGNATURES = {
     "hs_classic_run": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_int, ctypes.c_float,
                        ctypes.c_int, ctypes.c_void_p],
+    "hs_classic_geometry": [ctypes.c_int],
 }
+
+
+def launch_steps(niter):
+    """Iterations of each launch for `niter` iterations: q launches of
+    STEPS, then one of the remainder r (niter = q * STEPS + r)."""
+    q, r = divmod(int(niter), STEPS)
+    return [STEPS] * q + ([r] if r else [])
 
 
 def _bar(f):
@@ -80,12 +97,14 @@ def hs_classic_fused(Ex, Ey, Et, alpha, niter):
     if Ex.device.type != "cuda":
         raise ValueError(f"unsupported device {Ex.device}")
     B, ny, nx = Ex.shape
-    bufs = torch.zeros((2, B, 2, ny, nx), dtype=torch.float32,
+    bufs = torch.empty((2, B, 2, ny, nx), dtype=torch.float32,
                        device=Ex.device)
+    bufs[0].zero_()
     niter = int(niter)
     if bufs.numel() == 0 or niter == 0:
         return bufs[0, :, 0], bufs[0, :, 1]
-    lib = _build.load("hs_classic", _SIGNATURES)
+    lib = _build.load("hs_classic", _SIGNATURES,
+                      ("hs_classic_geometry", (*TILE, STEPS)))
     with torch.cuda.device(Ex.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.hs_classic_run(bufs[0].data_ptr(), bufs[1].data_ptr(),
@@ -94,7 +113,7 @@ def hs_classic_fused(Ex, Ey, Et, alpha, niter):
                                     float(alpha * alpha), niter, stream)
     hs_classic_fused.launches += 1
     _build.check(status, "hs_classic_run")
-    out = bufs[niter % 2]
+    out = bufs[len(launch_steps(niter)) % 2]
     return out[:, 0], out[:, 1]
 
 

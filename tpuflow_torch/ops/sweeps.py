@@ -1,15 +1,16 @@
 """Host side of the iterative kernels' per-sample stopping.
 
-K2 (csrc/tvl1_iterate.cu), K4 (csrc/hs_sor.cu) and K7 (csrc/brox_sor.cu)
-each export two C entry points: `<run>(state, const, partial,
-partial_len, err, n, active, B, ny, nx, thresh, max_iter, <scalars>,
-count, stream)`, which launches `count` iterations or sweeps, each ending
-in common.cuh's `stop_finalize`, and `<partial_len>(B, ny, nx)`, the
-length of their scratch.  `run_until_stopped` is the loop their wrappers
-share: it launches CHECK_EVERY iterations at a time and reads the
-per-sample `active` flags on the host between launches, so a solve ends
-at most CHECK_EVERY - 1 iterations after its last sample stopped (those
-launches return at once for inactive samples).
+K2 (csrc/tvl1_iterate.cu) and K7 (csrc/brox_sor.cu) each export two C
+entry points: `<run>(state, const, partial, partial_len, err, n, active,
+B, ny, nx, thresh, max_iter, <scalars>, count, stream)`, which launches
+`count` iterations or sweeps, each ending in common.cuh's
+`stop_finalize`, and `<partial_len>(B, ny, nx)`, the length of their
+scratch; `run_until_stopped` drives them.  `launch_until_stopped` is the
+loop it shares with K4's "tiles" route (ops/hs.py): it launches
+CHECK_EVERY iterations at a time and reads the per-sample `active` flags
+on the host between launches, so a solve ends at most CHECK_EVERY - 1
+iterations after its last sample stopped (those launches return at once
+for inactive samples).
 """
 
 import torch
@@ -60,17 +61,27 @@ def run_until_stopped(wrapper, library, signatures, run, partial_len, state,
     entry = getattr(lib, run)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        done = 0
         wrapper.launches += 1
-        while done < max_iter:
-            count = min(CHECK_EVERY, max_iter - done)
+
+        def launch(count):
             status = entry(state.data_ptr(), const.data_ptr(),
                            partial.data_ptr(), partial.numel(), err.data_ptr(),
                            n.data_ptr(), active.data_ptr(), B, ny, nx,
                            float(thresh), int(max_iter),
                            *(float(s) for s in scalars), count, stream)
             _build.check(status, run)
-            done += count
-            if done < max_iter and not bool(active.any()):
-                break
+
+        launch_until_stopped(launch, active, max_iter)
     return state, err, n
+
+
+def launch_until_stopped(launch, active, max_iter):
+    """Call launch(count) for CHECK_EVERY iterations at a time, up to
+    max_iter in all, until the device flags `active` are all 0."""
+    done = 0
+    while done < max_iter:
+        count = min(CHECK_EVERY, max_iter - done)
+        launch(count)
+        done += count
+        if done < max_iter and not bool(active.any()):
+            break
