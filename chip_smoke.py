@@ -12,28 +12,32 @@ then runs these phases, each printing one JSON line:
      (436x1024, synth_pair's flow; B=4 for the batched engines' kernels,
      B=1 for the single-pair solvers') and a small level:
      K1 (warp_const) and K2 (tvl1_iterate) at 7x16; K3 (warp_const_hs),
-     K4 (hs_sor), K5 (warp_planes), K6 (hs_classic) and K7 (brox_sor) at
-     55x128, whose odd height puts the last row at the even parity; K4
-     also at 218x512 and 109x256 (its route "tiles", at sizes no tile
-     divides) and 7x16 (its route "level" at the smallest level; 55x128
-     takes it too), each check naming its route; K6 also 13 and 1
-     iterations at 436x1024 and 100 at 109x257 (no tile divides it).  K5
-     warps Brox's six derivative planes; K7 solves the system that
-     `brox_scale` assembles from the synthetic flow.  K5p
+     K4 (hs_sor), K5 (warp_planes) and K6 (hs_classic) at 55x128, whose
+     odd height puts the last row at the even parity; K4 also at 218x512
+     and 109x256 (its route "tiles", at sizes no tile divides) and 7x16
+     (its route "level" at the smallest level; 55x128 takes it too),
+     each check naming its route; K6 also 13 and 1 iterations at
+     436x1024 and 100 at 109x257 (no tile divides it).  K7 (brox_sor)
+     at the five Brox levels of 1024x436, B=1 (its route "resident"),
+     and at B=2 x 436x1024 (its route "stream"), each check naming its
+     route.  K5 warps Brox's six derivative planes; K7 solves the system
+     that `brox_scale` assembles from the synthetic flow.  K5p
      (warp_planes_shift) warps 3 and 6 of those planes at 436x1024 (dmax
      8) and 6 at 55x128 (dmax 3, border_out on and off), by a flow with
      bands 0.5 px inside to 4.5 px past the bound on both signs of both
      axes.  The iterative
      kernels run a fixed count (K2, K4, K7: 8; K6: 100), then K2, K4 and
      K7 stop="error" from a zero flow or increment (n equal or off by
-     one);
+     one), and K7 300 sweeps with thresh < 0 (n == 300);
   3. the main paths at 1024x436, each run with every launch count set to
      0 just before it and read just after: `tvl1_batched` and
      `hs_pyramidal_batched` (4 pairs, stop="error"),
      `hs_classic_batched` (4 pairs, 100 iterations, alpha 7), and the
      single-pair `brox_spatial` and `robust_expo` (gray, method 1) at the
      reference CLI defaults (45 K5 launches at the three levels of at
-     least 96x96 px, 30 K5p launches at the two below, 75 K7 calls);
+     least 96x96 px, 30 K5p launches at the two below, 75 K7 calls, all
+     on route "resident", which launches exactly the sweeps the solves
+     need);
      kernels against plain versions (both on the card), the flow against
      the pairs' synthetic ground truth, and the HS, Brox and robust-expo
      solvers against the reference binary's goldens (tests/goldens/);
@@ -53,8 +57,11 @@ then runs these phases, each printing one JSON line:
      bound and its plain version (the single-pair kernels from device
      memory, L2 flushed before each call; K5p also at 55x128, where
      Brox runs it; K4's route "level" alone: one warp's whole solve at
-     55x128, B=128; and the HS call's sweeps needed against launched).
-     A kernel read below its bound fails the run.
+     55x128, B=128; and the HS call's sweeps needed against launched;
+     K7 as one resident solve of 16 and of 300 fixed sweeps, one launch
+     each, beside route "stream"'s time per sweep; K7's launches per
+     Brox pair per route and by kernel name).  A kernel read below its
+     bound fails the run.
 
 Then the {"kernels": [...]} line, the card's name and power limit as
 nvidia-smi gives them, and last {"ok": true, "device": {...}}.  Every
@@ -271,6 +278,21 @@ def check_classic(dev, ny, nx, niter=CLASSIC_NITER):
     return out
 
 
+def brox_levels():
+    """(nx, ny) of the single-pair solvers' levels at 1024x436 at the
+    reference CLI defaults: 5 (clamped on min(nx, ny))."""
+    from tpuflow_torch.data import NX, NY
+    from tpuflow_torch.ops.pyramid import clamp_nscales, pyramid_sizes
+
+    return pyramid_sizes(NX, NY, 0.5, clamp_nscales(NX, NY, 0.5, 10,
+                                                     use_hypot=False))
+
+
+def brox_dmax(scale):
+    """`brox_spatial`'s displacement bound at level `scale` (max_motion 8)."""
+    return max(3, -(-BROX_DMAX0 // 2 ** scale))
+
+
 def brox_inputs(dev, ny, nx):
     """Level-0 inputs of one Brox solve on synth_pair's first pair: the
     normalised, presmoothed images (I1, I2) as `brox_spatial` hands
@@ -364,11 +386,13 @@ def swapped(swaps):
             setattr(mod, name, fn)
 
 
-def brox_system(dev, ny, nx, dmax):
+def brox_system(dev, ny, nx, dmax, batch=1):
     """(state, const, thresh, alpha) of the first SOR solve of a level-0
     Brox outer iteration from the synthetic flow, the constants
     assembled by `brox_scale` itself (captured at its K7 call); the
-    state is the zero increment."""
+    state is the zero increment.  With batch > 1 the samples share the
+    system's matrix, sample k's right-hand side (Au, Av) scaled by
+    1 / (k + 1), so their solves stop at different sweeps."""
     import tpuflow_torch.models.brox_spatial as bs
     from tpuflow_torch.ops.brox import brox_sor_error_plain
 
@@ -382,17 +406,27 @@ def brox_system(dev, ny, nx, dmax):
     with swapped([(bs, "brox_sor_error", capture)]):
         bs.brox_scale(I1, I2, u, v, outer_iter=1, warp_mode="exact",
                       dmax=dmax)
-    return seen[0]
+    state, const, thresh, alpha = seen[0]
+    if batch > 1:
+        state = state.repeat(batch, 1, 1, 1)
+        const = const.repeat(batch, 1, 1, 1)
+        for k in range(1, batch):
+            const[k, :2] /= k + 1
+    return state.contiguous(), const.contiguous(), thresh, alpha
 
 
-def check_brox_sor(dev, ny, nx, dmax):
-    """K7 against its plain version on a Brox system: 8 fixed sweeps,
-    then stop="error" at the solver's threshold from the zero increment
-    (n equal or off by one: the kernel sums err in another order)."""
-    from tpuflow_torch.ops.brox import brox_sor_error, brox_sor_error_plain
+def check_brox_sor(dev, ny, nx, dmax, batch=1):
+    """K7 against its plain version on a Brox system, naming the route
+    the wrapper takes: 8 fixed sweeps, then stop="error" at the solver's
+    threshold from the zero increment (n equal or off by one: the kernel
+    sums err in another order), then thresh < 0 at max_iter 300 (n ==
+    300 exactly)."""
+    from tpuflow_torch.ops.brox import (brox_sor_error, brox_sor_error_plain,
+                                        device_route)
 
-    state, const, thresh, alpha = brox_system(dev, ny, nx, dmax)
-    out = {"shape": list(state.shape), "thresh": thresh}
+    state, const, thresh, alpha = brox_system(dev, ny, nx, dmax, batch)
+    out = {"shape": list(state.shape), "route": device_route(batch, ny, nx),
+           "thresh": thresh}
     got, _, n = brox_sor_error(state.clone(), const, -1.0, 8, alpha)
     ref, _, n_ref = brox_sor_error_plain(state.clone(), const, -1.0, 8, alpha)
     torch.cuda.synchronize()
@@ -400,7 +434,7 @@ def check_brox_sor(dev, ny, nx, dmax):
     out["fixed8_scale"] = float(ref.abs().max())
     # f32, FMA-contracted on the card: 2e-4 of the increment's scale
     if not (out["fixed8_max_abs_err"] <= 2e-4 * max(out["fixed8_scale"], 1e-3)
-            and n.tolist() == [8] and n_ref.tolist() == [8]):
+            and n.tolist() == [8] * batch and n_ref.tolist() == [8] * batch):
         raise AssertionError(f"brox_sor (8 sweeps) disagrees: {out}")
     got, err, n = brox_sor_error(state.clone(), const, thresh, 300, alpha)
     ref, err_ref, n_ref = brox_sor_error_plain(state.clone(), const, thresh,
@@ -411,6 +445,14 @@ def check_brox_sor(dev, ny, nx, dmax):
                                 if n.tolist() == n_ref.tolist() else None)
     if not bool(((n - n_ref).abs() <= 1).all()):
         raise AssertionError(f"brox_sor stopping counts differ by more than 1: {out}")
+    got, _, n = brox_sor_error(state.clone(), const, -1.0, 300, alpha)
+    ref, _, n_ref = brox_sor_error_plain(state.clone(), const, -1.0, 300, alpha)
+    out.update(fixed300_n=n.tolist(),
+               fixed300_max_abs_err=float((got - ref).abs().max()),
+               fixed300_scale=float(ref.abs().max()))
+    if not (n.tolist() == [300] * batch and n_ref.tolist() == [300] * batch
+            and bool(torch.isfinite(got).all())):
+        raise AssertionError(f"brox_sor (300 sweeps, thresh < 0) disagrees: {out}")
     return out
 
 
@@ -451,11 +493,18 @@ def epe(u, v, ru, rv):
     return torch.hypot(u - ru, v - rv).mean(dim=(-2, -1)).tolist()
 
 
+def reset(counters):
+    """Set every launch count to 0 (K7's per-route counts too)."""
+    for c in counters:
+        c.launches = 0
+        for route in getattr(c, "route_launches", {}):
+            c.route_launches[route] = 0
+
+
 def counted(counters, fn):
     """Run fn() with every launch count set to 0 just before it; returns
     (fn's result, seconds, {wrapper: launches in that run})."""
-    for c in counters:
-        c.launches = 0
+    reset(counters)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = fn()
@@ -509,11 +558,16 @@ def main_path(dev, counters, engine, kernels_used, synth_bound, **kw):
     return out
 
 
-def sweeps_launched(its, max_iter=300):
-    """Sweeps K7 launches for solves that needed `its` sweeps: the host
-    reads `active` every CHECK_EVERY sweeps."""
+def sweeps_launched(its, ny, nx, max_iter=300):
+    """Sweeps K7 launches for one-sample solves of an (ny, nx) level that
+    needed `its` sweeps: route "resident" runs no more than a solve
+    needs; route "stream" rounds up to CHECK_EVERY, the host reading
+    `active` every CHECK_EVERY sweeps."""
+    from tpuflow_torch.ops.brox import device_route
     from tpuflow_torch.ops.sweeps import CHECK_EVERY
 
+    if device_route(1, ny, nx) == "resident":
+        return sum(its)
     return sum(min(-(-n // CHECK_EVERY) * CHECK_EVERY, max_iter) for n in its)
 
 
@@ -540,8 +594,11 @@ def hs_sweeps(its, ny, nx, cap=150):
 def pair_main_path(dev, counters, engine, synth_bound, expect, **kw):
     """One single-pair main path at 1024x436 (synth_pair, seed SEED0)
     through the kernels, then through the plain versions; `expect` maps
-    each wrapper of the path to the launches it must make."""
+    each wrapper of the path to the launches it must make.  Every K7
+    call must take route "resident", and K7 must launch exactly the
+    sweeps the solves needed."""
     from tpuflow_torch.data import NX, NY, synth_flow
+    from tpuflow_torch.ops.brox import brox_sor_error
 
     I0, I1 = (im[0] for im in pairs(1, NY, NX, dev))
     (u, v, diags), seconds, launches = counted(
@@ -553,16 +610,22 @@ def pair_main_path(dev, counters, engine, synth_bound, expect, **kw):
         raise AssertionError("main path: flow of the wrong shape or not finite")
     tu, tv = (torch.as_tensor(f, dtype=torch.float32, device=dev)
               for f in synth_flow(NY, NX))
+    routes = dict(brox_sor_error.route_launches)
     its = {str(s): d["iterations"].ravel().tolist() for s, d in enumerate(diags)}
     out = {"engine": engine.__name__, "shape": [NY, NX], "seconds": seconds,
-           "launches": launches,
+           "launches": launches, "brox_sor_route_launches": routes,
            "epe_kernels_vs_plain": epe(u, v, pu, pv),
            "epe_vs_synthetic_flow": epe(u, v, -tu, -tv),
            "sweeps_per_solve": its,
-           "sweeps_needed_launched": {s: [sum(n), sweeps_launched(n)]
-                                      for s, n in its.items()}}
+           "sweeps_needed_launched": {
+               s: [sum(n), sweeps_launched(n, ny, nx)]
+               for (s, n), (nx, ny) in zip(its.items(), brox_levels())}}
     if not out["epe_kernels_vs_plain"] <= 0.01:
         raise AssertionError(f"main path: kernels vs plain EPE > 0.01: {out}")
+    if routes != {"resident": launches["brox_sor_error"], "stream": 0} or any(
+            need != launched for need, launched
+            in out["sweeps_needed_launched"].values()):
+        raise AssertionError(f"main path: K7 not resident throughout: {out}")
     wrong = {k.__name__: launches[k.__name__] for k in expect
              if launches[k.__name__] != expect[k]}
     if wrong:
@@ -607,14 +670,16 @@ def marking_levels(mark):
 
 def pair_timing(engine, I0, I1, counters, groups, levels_via_callback):
     """Seconds per pair of a single-pair solver at 1024x436 over 3 reps
-    after one warm call, peak memory, launches per pair and the
-    breakdown of one call."""
+    after one warm call, peak memory, launches per pair (K7's per route
+    too: route "resident" on every call) and the breakdown of one call,
+    with K7's device kernels by name as the profiler recorded them."""
+    from tpuflow_torch.ops.brox import brox_sor_error
+
     out = {"engine": engine.__name__, "shape": list(I0.shape)}
     engine(I0, I1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    reset(counters)
     reps = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -623,23 +688,27 @@ def pair_timing(engine, I0, I1, counters, groups, levels_via_callback):
         reps.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
     per_pair = {c.__name__: c.launches / len(reps) for c in counters}
+    routes = {r: k / len(reps) for r, k in brox_sor_error.route_launches.items()}
+    if routes != {"resident": per_pair["brox_sor_error"], "stream": 0}:
+        raise AssertionError(f"{engine.__name__}: K7 routes per pair {routes}")
     if levels_via_callback:
-        where = breakdown(lambda cb: engine(I0, I1, level_callback=cb), groups)
+        where = breakdown(lambda cb: engine(I0, I1, level_callback=cb), groups,
+                          name_parts=K7_KERNELS)
     else:
         def run(cb):
             if cb is None:
                 return engine(I0, I1)
             with marking_levels(cb):
                 return engine(I0, I1)
-        where = breakdown(run, groups)
+        where = breakdown(run, groups, name_parts=K7_KERNELS)
         # marks count calls coarsest first: name them by pyramid level
         n = len(where["seconds_to_level_end"])
         where["seconds_to_level_end"] = {
             str(n - 1 - int(k)): t
             for k, t in where["seconds_to_level_end"].items()}
     out.update(seconds_per_pair=sum(reps) / len(reps), rep_s=reps,
-               launches_per_pair=per_pair, max_memory_allocated_bytes=peak,
-               breakdown=where)
+               launches_per_pair=per_pair, brox_sor_routes_per_pair=routes,
+               max_memory_allocated_bytes=peak, breakdown=where)
     return out
 
 
@@ -668,25 +737,33 @@ def device_ms(fn, n, per_call=None, flush_l2=True):
              if per_call and flush_l2 else None)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            if flush is not None:
-                flush.sum()
-            fn()
-        torch.cuda.synchronize()
-    if not per_call:
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA) / 1e3 / n, None
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # the profiler on that host has at times recorded none of a part's
+    # kernels in a window; such a window is profiled again, up to 3 times
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                if flush is not None:
+                    flush.sum()
+                fn()
+            torch.cuda.synchronize()
+        if not per_call:
+            return sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e3 / n, None
+        kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        us = {part: np.array([e.time_range.elapsed_us() for e in kernels
+                              if part in e.name], dtype=np.float64)
+              for part in per_call}
+        if all(u.size for u in us.values()):
+            break
     ms, record = 0.0, {}
     for part, count in per_call.items():
-        us = np.array([e.time_range.elapsed_us() for e in kernels
-                       if part in e.name], dtype=np.float64)
-        if us.size == 0:
-            raise AssertionError(f"profiler recorded no kernel named *{part}*")
-        ms += float(np.median(us)) * count / 1e3
-        record[part] = [int(us.size), n * count, float(us.min()),
-                        float(np.median(us)), float(us.max())]
+        if us[part].size == 0:
+            raise AssertionError(f"profiler recorded no kernel named *{part}* "
+                                 f"in {attempt + 1} windows")
+        ms += float(np.median(us[part])) * count / 1e3
+        record[part] = [int(us[part].size), n * count, float(us[part].min()),
+                        float(np.median(us[part])), float(us[part].max())]
     return ms, record
 
 
@@ -698,10 +775,12 @@ def level0_brox(dev):
     also read back to back with the level's 25 MB warm in the 50 MB L2.
     K5p warps the six Brox planes by `past_bound_flow` (dmax 8), and also
     at 55x128 (dmax 3), the largest level where Brox runs it.  K7's unit
-    is one wrapper call of one fixed sweep (red, black, finalize); also
-    its device ms per sweep in a 16-sweep call."""
+    is one resident solve of 16 fixed sweeps (one launch), also of 300;
+    beside it route "stream" on the same system: a one-sweep call (red,
+    black, finalize) and its device ms per sweep in a 16-sweep call."""
     from tpuflow_torch.data import NX, NY
-    from tpuflow_torch.ops.brox import brox_sor_error, brox_sor_error_plain
+    from tpuflow_torch.ops.brox import (_solve_stream, brox_sor_error,
+                                        brox_sor_error_plain, device_route)
     from tpuflow_torch.ops.warp import (warp_planes_batched, warp_planes_plain,
                                         warp_planes_shift_batched,
                                         warp_planes_shift_plain)
@@ -745,21 +824,43 @@ def level0_brox(dev):
 
     state, const, _, alpha = brox_system(dev, NY, NX, BROX_DMAX0)
 
-    def k7(sweeps=1):
+    def k7(sweeps):
         return brox_sor_error(state, const, -1.0, sweeps, alpha)
 
-    def k7_plain():
-        return brox_sor_error_plain(state, const, -1.0, 1, alpha)
+    def k7_stream(sweeps):
+        return _solve_stream(state, const, -1.0, sweeps, alpha)
 
-    # one fixed sweep: red, black and finalize launches
-    k = {}
-    k["ms"], k["profiler_us"] = device_ms(
-        k7, 50, {"brox_sor_color": 2, "stop_finalize": 1})
-    k["plain_ms"] = device_ms(k7_plain, 5)[0]
-    k.update(call_ms=time_ms(k7, 50), plain_call_ms=time_ms(k7_plain, 5))
-    k["ms_per_sweep_in_16"] = device_ms(
-        lambda: k7(16), 10, {"brox_sor_color": 32, "stop_finalize": 16})[0] / 16
-    k["bound_ms"], k["bound_by"] = bound_ms(NY * NX, K7_PLANES, K7_FLOPS_PX)
+    def k7_plain():
+        return brox_sor_error_plain(state, const, -1.0, 16, alpha)
+
+    # one resident solve of N fixed sweeps: one launch, its bound the
+    # solve's (13 planes once, N sweeps' operations)
+    k = {"route": device_route(1, NY, NX),
+         "unit": "one resident solve of 16 fixed sweeps"}
+    k["ms"], k["profiler_us"] = device_ms(lambda: k7(16), 20,
+                                          {"brox_sor_resident": 1})
+    k["event_ms"] = time_ms(lambda: k7(16), 20)
+    k["ms_per_sweep_in_16"] = k["ms"] / 16
+    k["bound_ms"], k["bound_by"] = bound_ms(NY * NX, K7_PLANES, 16 * K7_FLOPS_PX)
+    k["plain_ms"] = device_ms(k7_plain, 3)[0]
+    k["plain_call_ms"] = time_ms(k7_plain, 3)
+    s300 = {}
+    s300["ms"], s300["profiler_us"] = device_ms(lambda: k7(300), 5,
+                                                {"brox_sor_resident": 1})
+    s300["event_ms"] = time_ms(lambda: k7(300), 5)
+    s300["ms_per_sweep"] = s300["ms"] / 300
+    s300["bound_ms"], s300["bound_by"] = bound_ms(NY * NX, K7_PLANES,
+                                                  300 * K7_FLOPS_PX)
+    k["solve_300"] = s300
+    # route "stream" on the same system (the wrapper takes "resident"
+    # here): a one-sweep call (red, black, finalize) and per sweep in 16
+    st = {}
+    st["one_sweep_ms"], st["profiler_us"] = device_ms(
+        lambda: k7_stream(1), 50, {"brox_sor_color": 2, "stop_finalize": 1})
+    st["ms_per_sweep_in_16"] = device_ms(
+        lambda: k7_stream(16), 10, {"brox_sor_color": 32, "stop_finalize": 16})[0] / 16
+    st["one_sweep_bound_ms"] = bound_ms(NY * NX, K7_PLANES, K7_FLOPS_PX)[0]
+    k["stream"] = st
     out["brox_sor_error"] = k
     return out
 
@@ -915,17 +1016,21 @@ HS_GROUPS = (("warp_const", "K3 warp_const_hs"), ("hs_sor_tiles", "K4 hs_sor"),
 CLASSIC_GROUPS = (("hs_classic_block", "K6 hs_classic"),)
 BROX_GROUPS = (("warp_planes_kernel", "K5 warp_planes"),
                ("warp_planes_shift_kernel", "K5p warp_planes_shift"),
+               ("brox_sor_resident", "K7 brox_sor"),
                ("brox_sor_color", "K7 brox_sor"),
                ("stop_finalize", "K7 brox_sor"), ("gemm", "zoom matmul"))
+# K7's device kernels: route "resident"'s, then route "stream"'s
+K7_KERNELS = ("brox_sor_resident", "brox_sor_color", "stop_finalize")
 
 
-def breakdown(run, groups, levels=True):
+def breakdown(run, groups, levels=True, name_parts=()):
     """Where one call of `run(level_callback)` spends its time:
     host-clock seconds up to the end of each pyramid level (synchronised
     in the level callback; the first interval also holds normalisation
     and the pyramid build), then one call under torch.profiler: device
-    time by kernel group, the top kernels, and the card's busy share of
-    the call's wall time."""
+    time by kernel group, the top kernels, the card's busy share of the
+    call's wall time, and the recorded launches of the kernels whose
+    names hold a part in `name_parts` (the profiler may miss a few)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -964,6 +1069,10 @@ def breakdown(run, groups, levels=True):
                device_idle_share=1 - busy_ms / (1e3 * wall) if kernels else None,
                groups_ms_launches=by_group,
                top_kernels_ms_launches=[(n[:90], ms, c) for n, ms, c in top])
+    if name_parts:
+        out["recorded_launches"] = {
+            part: sum(c for name, _, c in kernels if part in name)
+            for part in name_parts}
     return out
 
 
@@ -985,8 +1094,7 @@ def engine_timing(engine, I0, I1, counters, groups, pyramid=True, **kw):
         engine(I0, I1, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for c in counters:
-        c.launches = 0
+    reset(counters)
     reps = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1118,7 +1226,6 @@ def main():
     from tpuflow_torch.ops.hs import hs_sor_error
     from tpuflow_torch.ops.hs_classic import hs_classic_fused
     from tpuflow_torch.ops.interp import K5_MIN_PIXELS
-    from tpuflow_torch.ops.pyramid import clamp_nscales, pyramid_sizes
     from tpuflow_torch.ops.tvl1 import tvl1_iterate_error
     from tpuflow_torch.ops.warp import (warp_const_batched,
                                         warp_const_hs_batched,
@@ -1168,11 +1275,17 @@ def main():
             check_warp_planes_shift(dev, 436, 1024, BROX_DMAX0, 6, True),
             check_warp_planes_shift(dev, *K5P_SHAPE, 3, 6, True),
             check_warp_planes_shift(dev, *K5P_SHAPE, 3, 6, False)],
-        "brox_sor_error": [check_brox_sor(dev, 436, 1024, BROX_DMAX0),
-                           check_brox_sor(dev, 55, 128, 3)],
+        # route "resident" at the five Brox levels of 1024x436 (B=1),
+        # route "stream" at B=2 x 436x1024
+        "brox_sor_error": [check_brox_sor(dev, ny, nx, brox_dmax(s))
+                           for s, (nx, ny) in enumerate(brox_levels())]
+                          + [check_brox_sor(dev, NY, NX, BROX_DMAX0, 2)],
     }
     for name, c in checks.items():
         emit(phase=f"{name}_vs_plain", checks=c)
+    k7_routes = [c["route"] for c in checks["brox_sor_error"]]
+    if k7_routes != ["resident"] * 5 + ["stream"]:
+        raise AssertionError(f"brox_sor took routes {k7_routes}")
 
     counters = (warp_const_batched, tvl1_iterate_error, warp_const_hs_batched,
                 hs_sor_error, warp_planes_batched, warp_planes_shift_batched,
@@ -1196,8 +1309,7 @@ def main():
     # 1024x436 (clamped on min(nx, ny)), 15 outer x 1 inner iterations,
     # one warp launch and one K7 call per outer iteration; the warp is K5
     # on levels of at least 96x96 px (0-2), K5p below (3-4): 45 + 30, 75
-    levels = pyramid_sizes(NX, NY, 0.5, clamp_nscales(NX, NY, 0.5, 10,
-                                                      use_hypot=False))
+    levels = brox_levels()
     big = sum(nx * ny >= K5_MIN_PIXELS for nx, ny in levels)
     per_pair = {warp_planes_batched: 15 * big,
                 warp_planes_shift_batched: 15 * (len(levels) - big),

@@ -26,10 +26,13 @@ Each outer iteration runs two kernels on the card:
     function) below, where the JAX package takes its XLA shift path
     (tpuflow/ops/interp.py:211);
   * each inner iteration's SOR solve, `_sor_solve` -> K7
-    (csrc/brox_sor.cu, `brox_sor_error`), at EVERY level: the JAX
-    package solves on XLA below 96x96 px
-    (tpuflow/models/brox_spatial.py:123-125); the port has no such
-    split for the solve.
+    (csrc/brox_sor.cu, `brox_sor_error`), at EVERY level: one launch
+    per solve (route "resident": the level in the SMs' shared memory,
+    the stop tested on the device after every sweep, no host read
+    during the solve, no sweep beyond the last one needed) at every
+    level of a 1024x436 pair on an H100.  The JAX package solves on XLA
+    below 96x96 px (tpuflow/models/brox_spatial.py:123-125); the port
+    has no such split for the solve.
 On the CPU the wrappers run their plain versions, and "auto" resolves
 to the exact gather warp.
 

@@ -23,32 +23,74 @@ The arithmetic is the TPU kernel's (brox_pallas.py:68-125), not
 then a product, and the divergence psi1*down + psi2*up + psi3*right +
 psi4*left in that order.
 
-On a CUDA tensor the wrapper launches csrc/brox_sor.cu (three kernels
-per sweep, see the note there) or raises; on a CPU tensor it runs
-`brox_sor_error_plain`.  Both update `state` IN PLACE and return it.
-The kernel sums `err` in another order than PyTorch, so a sample's `n`
-may differ from the plain version's by one where `err` lands next to
-`thresh`.
+On a CUDA tensor the wrapper launches csrc/brox_sor.cu or raises; on a
+CPU tensor it runs `brox_sor_error_plain`.  Both update `state` IN
+PLACE and return it.  The kernel has two routes, which `brox_sor_route`
+picks from the system's size and the device's limits (see the note in
+the source): "resident", the whole solve in one cooperative launch with
+the level in the SMs' shared memory, one block per tile of `TILE`
+pixels (halo `HALO`) per sample and the stop tested on the device after
+every sweep; and "stream", three launches per sweep with a host read of
+`active` every CHECK_EVERY sweeps (ops/sweeps.py), for systems whose
+tiles outnumber the blocks the device holds at once.  No switch picks a
+route, and a refused launch raises.  The kernel sums `err` in another
+order than PyTorch, so a sample's `n` may differ from the plain
+version's by one where `err` lands next to `thresh`.
 """
 
 import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
 
+from tpuflow_torch import _build
 from tpuflow_torch.ops.hs import D_FLOOR
 from tpuflow_torch.ops.sweeps import check_state_const, run_until_stopped
 
 SOR_OMEGA = 1.9  # reference src/brox_optic_flow_spatial.cpp:25
 
+# the kernel's geometry, as csrc/brox_sor.cu states it (checked when the
+# library loads): route "resident"'s tile (rows, columns), the halo of
+# du and dv, the threads of a block (one per-sample stop slot each: the
+# most samples a launch takes), the bytes of shared scratch before the
+# planes, and a block's shared memory: the scratch, the 9 constants
+# (Au, Av, rdu, rdv, D, psi1-psi4) over the tile, du and dv over the
+# tile and its halo
+TILE = (64, 64)
+HALO = 1
+RESIDENT_THREADS = 512
+RESIDENT_SCRATCH = 6400
+RESIDENT_SMEM = RESIDENT_SCRATCH + 4 * (
+    9 * TILE[0] * TILE[1] + 2 * (TILE[0] + 2 * HALO) * (TILE[1] + 2 * HALO))
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "brox_sor_run": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_float, ctypes.c_int,
-                     ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
-    "brox_sor_partial_len": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    "brox_sor_run": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I,
+                     _F, _I, _F, _I, _P],
+    "brox_sor_partial_len": [_I, _I, _I],
+    "brox_sor_solve": [_P, _P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _F,
+                       _I, _F, _P],
+    "brox_sor_limits": [_P],
+    "brox_sor_geometry": [_I],
 }
+
+
+def tile_count(ny, nx):
+    """Route "resident"'s tiles (blocks per sample) of an (ny, nx) level."""
+    return -(-ny // TILE[0]) * -(-nx // TILE[1])
+
+
+def brox_sor_route(B, ny, nx, smem_optin, resident_blocks):
+    """The kernel's route for B samples of (ny, nx) on a device whose
+    blocks may opt in to `smem_optin` bytes of shared memory and which
+    holds `resident_blocks` blocks of route "resident" at once:
+    "resident" (the whole solve in one launch, one block per tile per
+    sample) where a block fits and every block is resident at once, else
+    "stream" (three launches per sweep)."""
+    fits = (RESIDENT_SMEM <= smem_optin and B <= RESIDENT_THREADS
+            and B * tile_count(ny, nx) <= resident_blocks)
+    return "resident" if fits else "stream"
 
 
 def _sweep(s, au, av, rdu, rdv, dd, psis, alpha, colors):
@@ -105,6 +147,62 @@ def brox_sor_error_plain(state, const, thresh, max_iter, alpha):
     return state, err, n
 
 
+def _library():
+    return _build.load("brox_sor", _SIGNATURES, (
+        "brox_sor_geometry", (*TILE, HALO, RESIDENT_THREADS, RESIDENT_SCRATCH,
+                              RESIDENT_SMEM)))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_limits(index):
+    """(opt-in shared memory per block, resident blocks of route
+    "resident") of CUDA device `index`, as the device reports them."""
+    out = (ctypes.c_int * 2)()
+    with torch.cuda.device(index):
+        _build.check(_library().brox_sor_limits(out), "brox_sor_limits")
+    return out[0], out[1]
+
+
+def device_route(B, ny, nx, device=None):
+    """`brox_sor_route` on CUDA device `device` (default: the current
+    one; builds the kernel library on first use)."""
+    index = None if device is None else torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return brox_sor_route(B, ny, nx, *_device_limits(index))
+
+
+def _solve_resident(state, const, thresh, max_iter, alpha):
+    """Route "resident" on CUDA tensors: one cooperative launch."""
+    B, _, ny, nx = state.shape
+    dev = state.device
+    err = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
+    n = torch.zeros((B,), dtype=torch.int32, device=dev)
+    partial = torch.empty(2 * B * tile_count(ny, nx), dtype=torch.float32,
+                          device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        brox_sor_error.launches += 1
+        brox_sor_error.route_launches["resident"] += 1
+        _build.check(lib.brox_sor_solve(
+            state.data_ptr(), const.data_ptr(), partial.data_ptr(),
+            partial.numel(), err.data_ptr(), n.data_ptr(), B, ny, nx,
+            float(thresh), int(max_iter), float(alpha), stream),
+            "brox_sor_solve")
+    return state, err, n
+
+
+def _solve_stream(state, const, thresh, max_iter, alpha):
+    """Route "stream" on CUDA tensors: three launches per sweep, the
+    host reading `active` every CHECK_EVERY sweeps."""
+    _library()
+    brox_sor_error.route_launches["stream"] += 1
+    return run_until_stopped(brox_sor_error, "brox_sor", _SIGNATURES,
+                             "brox_sor_run", "brox_sor_partial_len", state,
+                             const, thresh, max_iter, (alpha,))
+
+
 def brox_sor_error(state, const, thresh, max_iter, alpha):
     """Run one inner iteration's SOR solve in place.
 
@@ -117,9 +215,17 @@ def brox_sor_error(state, const, thresh, max_iter, alpha):
         return brox_sor_error_plain(state, const, thresh, max_iter, alpha)
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
-    return run_until_stopped(brox_sor_error, "brox_sor", _SIGNATURES,
-                             "brox_sor_run", "brox_sor_partial_len", state,
-                             const, thresh, max_iter, (alpha,))
+    B, _, ny, nx = state.shape
+    if state.numel() == 0 or max_iter <= 0:
+        dev = state.device
+        return (state,
+                torch.full((B,), float("inf"), dtype=torch.float32, device=dev),
+                torch.zeros((B,), dtype=torch.int32, device=dev))
+    if device_route(B, ny, nx, state.device) == "resident":
+        return _solve_resident(state, const, thresh, max_iter, alpha)
+    return _solve_stream(state, const, thresh, max_iter, alpha)
 
 
+# wrapper calls that launched a kernel, in all and per route
 brox_sor_error.launches = 0
+brox_sor_error.route_launches = {"resident": 0, "stream": 0}
