@@ -25,7 +25,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "tpuflow_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
-KERNELS = ("warp_const", "tvl1_iterate", "hs_sor", "hs_classic", "brox_sor")
+KERNELS = ("warp_const", "warp_planes", "tvl1_iterate", "hs_sor",
+           "hs_classic", "brox_sor")
 
 _loaded = {}
 

@@ -18,15 +18,16 @@ results:
 `warp_planes_bounded` is the solvers' fast warp, chosen by
 `resolve_warp_mode`: the displacement-bounded warp of K5 on large
 planes and `warp_planes_shift` (K5p) on small ones, routed as the JAX
-package routes them (tpuflow_torch.ops.warp has both kernels).
+package routes them (tpuflow_torch.ops.warp has both kernels, and
+`warp_planes_uv` hands them u and v as they are: a call launches the
+kernel and nothing else).
 """
 
 import os
 
 import torch
 
-from tpuflow_torch.ops.warp import (warp_planes_batched,
-                                    warp_planes_shift_batched)
+from tpuflow_torch.ops.warp import warp_planes_uv
 
 # planes of at least this many pixels take K5 (tpuflow/ops/interp.py:211)
 K5_MIN_PIXELS = 96 * 96
@@ -133,13 +134,11 @@ def warp_planes_bounded(planes, u, v, dmax, border_out=True, fast_only=None,
         fast_only = not os.environ.get("TPUFLOW_WARP_EXACT")
     H, W = planes.shape[-2:]
     if border_out and fast_only and H * W >= K5_MIN_PIXELS:
-        uv = torch.stack([u, v])[None]
-        out, oflow = warp_planes_batched(planes[None].contiguous(), uv, dmax)
-        out = out[0]
+        out = warp_planes_uv(planes, u, v, dmax)
     else:
-        out, oflow = warp_planes_shift(planes, u, v, dmax, border_out), 0
+        out = warp_planes_shift(planes, u, v, dmax, border_out)
     if with_overflow:
-        return out, oflow
+        return out, 0
     return out
 
 
@@ -156,7 +155,5 @@ def warp_planes_shift(planes, u, v, dmax, border_out=True):
     non-negative coordinates; negative coordinates use the floor
     anchor, not the reference's trunc anchor, a sub-pixel difference
     confined to the one-cell image rim)."""
-    uv = torch.stack([u, v])[None]
-    out, _ = warp_planes_shift_batched(planes[None].contiguous(), uv, dmax,
-                                       border_out)
-    return out[0]
+    return warp_planes_uv(planes, u, v, dmax, shift=True,
+                          border_out=border_out)

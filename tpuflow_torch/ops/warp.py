@@ -48,17 +48,27 @@ pixels with x+u < 1, x0 > nx-3, y+v < 1 or y0 > ny-3 are 0; with
 `border_out=False` (tvl1occflow's warp) they keep the clamped taps'
 sum, the reference's Neumann clamping.
 
-One CUDA source (csrc/warp_const.cu) holds them all: K1 and K3 as one
-template on the mode, K5 as its own kernel sharing their Keys cell, and
-K5p as a kernel of its own, templated on border_out, with its own
-anchor, window masks, index clamps and rounding.  Each has its own wrapper and
-launch count, so a run can show them apart.  On a CUDA tensor a wrapper
-launches the kernel (or raises); on a CPU tensor it runs
-`warp_const_plain`, `warp_planes_plain` or `warp_planes_shift_plain`,
-the same arithmetic in PyTorch.
+Two CUDA sources hold them: csrc/warp_const.cu K1 and K3, one template
+on the mode; csrc/warp_planes.cu K5 and K5p, one kernel body templated
+on the variant (K5's strict bound, or K5p's shift window with or
+without border_out), whose Keys cell is K1's (csrc/keys.cuh) and whose
+K5p keeps its own anchor, window masks, index clamps and rounding.
+K5 and K5p run one thread per pixel and group of planes, gathering
+from device memory (see the note in the source); `warp_planes_group`
+picks the planes a thread warps, GROUPS[0] or GROUPS[1], from the
+level's size and the device's SMs.  No switch picks it, a refused
+launch raises, and nothing falls back to the plain version.  The
+kernels take u and v as two pointers with one batch stride, so a call
+launches the kernel and nothing else.  Each wrapper has its own launch
+count, and K5's and K5p's their counts per group (`group_launches`),
+so a run can show them apart.  On a CUDA tensor a wrapper launches the
+kernel (or raises); on a CPU tensor it runs `warp_const_plain`,
+`warp_planes_plain` or `warp_planes_shift_plain`, the same arithmetic
+in PyTorch.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -73,17 +83,28 @@ _SIGNATURES = {
                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_void_p],
-    "warp_planes": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                    ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                    ctypes.c_void_p],
-    "warp_planes_shift": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                          ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p],
 }
 # mode -> (C entry point, constant planes)
 _MODES = {"tvl1": ("warp_const_tvl1", 4), "hs": ("warp_const_hs", 5)}
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_PLANES_SIGNATURES = {
+    "warp_planes": [_P, _I, _P, _P, _L, _P, _I, _I, _I, _I, _I, _I, _P],
+    "warp_planes_geometry": [_I],
+}
+# K5 and K5p's geometry, as csrc/warp_planes.cu states it (checked when
+# the library loads): how far a tap may lie before and after its pixel
+# beyond dmax (K5p's shift window); a block's columns and rows; the
+# planes a thread may warp, the larger first
+TAP_MARGIN = (1, 2)
+BLOCK = (32, 4)
+GROUPS = (6, 3)
+# a thread warps GROUPS[0] planes only where the blocks of one group's
+# pixels number at least this many per SM (chip_smoke.py times both
+# groups at each shape of the main paths)
+WAVES = 4
+# K5, K5p with border_out, K5p without
+_VARIANT = {(False, True): 0, (True, True): 1, (True, False): 2}
 
 
 def _keys(t):
@@ -263,22 +284,108 @@ def warp_const_hs_batched(planes, uv, aux, dmax, alpha2):
                    alpha2)
 
 
-def _launch_planes(wrapper, entry, planes, uv, dmax, *extra):
-    """Run K5 or K5p (C entry point `entry`, trailing int arguments
-    `extra`) on CUDA tensors, counting the launch on `wrapper`."""
+def plane_groups(P, largest):
+    """(first plane, planes) of each group the kernels split P planes
+    into: groups of `largest` (6 or 3), then, for 6, one group of 3 where
+    3 or more remain, then groups of 1."""
+    out = [(k, largest) for k in range(0, P - P % largest, largest)]
+    k = len(out) * largest
+    if largest == 6 and P - k >= 3:
+        out.append((k, 3))
+        k += 3
+    return out + [(q, 1) for q in range(k, P)]
+
+
+def warp_planes_group(B, ny, nx, sms):
+    """The planes a K5 / K5p thread warps for B samples of (ny, nx)
+    planes on a device with `sms` SMs: GROUPS[0] where the blocks of one
+    group's pixels number at least WAVES per SM (the cell is then
+    computed once for more planes), else GROUPS[1] (twice the threads at
+    the small levels)."""
+    blocks = B * -(-ny // BLOCK[1]) * -(-nx // BLOCK[0])
+    return GROUPS[0] if blocks >= WAVES * sms else GROUPS[1]
+
+
+def _planes_library():
+    return _build.load("warp_planes", _PLANES_SIGNATURES, (
+        "warp_planes_geometry", (*TAP_MARGIN, *BLOCK, *GROUPS)))
+
+
+@functools.lru_cache(maxsize=None)
+def device_group(B, ny, nx, index):
+    """`warp_planes_group` on CUDA device `index`, from its SM count;
+    cached, since the wrappers ask on every call."""
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return warp_planes_group(B, ny, nx, sms)
+
+
+def _planes_on_card(shift, border_out, planes, u, v, uv_bstride, dmax,
+                    group=None):
+    """Launch K5 (or K5p with `shift`) on CUDA tensors: planes (B, P, ny,
+    nx) contiguous, sample b's flow at u and v + b * uv_bstride, each
+    (ny, nx) contiguous; `group` planes a thread (default:
+    `device_group`'s), counting the launch on the wrapper in all and per
+    group."""
+    wrapper = warp_planes_shift_batched if shift else warp_planes_batched
     B, P, ny, nx = planes.shape
     out = torch.empty_like(planes)
     if out.numel() == 0:
-        return out, 0
-    lib = _build.load("warp_const", _SIGNATURES)
+        return out
+    lib = _planes_library()
+    if group is None:
+        group = device_group(B, ny, nx, planes.device.index)
     with torch.cuda.device(planes.device):
         stream = torch.cuda.current_stream().cuda_stream
-        status = getattr(lib, entry)(planes.data_ptr(), P, uv.data_ptr(),
-                                     uv.stride(0), out.data_ptr(), B, ny, nx,
-                                     int(dmax), *extra, stream)
+        status = lib.warp_planes(
+            planes.data_ptr(), P, u.data_ptr(), v.data_ptr(), uv_bstride,
+            out.data_ptr(), B, ny, nx, int(dmax),
+            _VARIANT[bool(shift), bool(border_out) or not shift], group,
+            stream)
     wrapper.launches += 1
-    _build.check(status, entry)
-    return out, 0
+    wrapper.group_launches[group] += 1
+    _build.check(status, "warp_planes")
+    return out
+
+
+def warp_planes_on_group(planes, uv, dmax, group, shift=False,
+                         border_out=True):
+    """K5 (K5p with `shift`) on CUDA tensors with `group` planes a
+    thread, one of GROUPS (the wrappers take `device_group`'s).  Same
+    inputs and result as `warp_planes_batched`
+    (`warp_planes_shift_batched`)."""
+    _check(planes, uv, None, dmax)
+    if not _on_card(planes):
+        raise ValueError("warp_planes_on_group runs on CUDA tensors only")
+    if group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, got {group}")
+    return _planes_on_card(shift, border_out, planes, uv[:, 0], uv[:, 1],
+                           uv.stride(0), dmax, group), 0
+
+
+def warp_planes_uv(planes, u, v, dmax, shift=False, border_out=True):
+    """The warp of one (P, ny, nx) stack by the flow planes u and v, each
+    (ny, nx): K5 (K5p with `shift`) with u and v handed to the kernel as
+    they are, no stacked copy; the plain version on CPU tensors."""
+    planes = planes[None].contiguous()
+    if not _on_card(planes):
+        uv = torch.stack([u, v])[None]
+        if shift:
+            out, _ = warp_planes_shift_batched(planes, uv, dmax, border_out)
+        else:
+            out, _ = warp_planes_batched(planes, uv, dmax)
+        return out[0]
+    ny, nx = planes.shape[-2:]
+    u, v = u.contiguous(), v.contiguous()
+    for name, t in (("planes", planes), ("u", u), ("v", v)):
+        if t.dtype != torch.float32 or t.device != planes.device:
+            raise ValueError(f"{name} must be float32 on {planes.device}, "
+                             f"got {t.dtype} on {t.device}")
+    if tuple(u.shape) != (ny, nx) or tuple(v.shape) != (ny, nx):
+        raise ValueError(f"u and v must be {(ny, nx)}, got "
+                         f"{tuple(u.shape)} and {tuple(v.shape)}")
+    if int(dmax) != dmax or dmax < 0:
+        raise ValueError(f"dmax must be a non-negative integer, got {dmax}")
+    return _planes_on_card(shift, border_out, planes, u, v, 0, dmax)[0]
 
 
 def warp_planes_batched(planes, uv, dmax):
@@ -290,8 +397,8 @@ def warp_planes_batched(planes, uv, dmax):
     _check(planes, uv, None, dmax)
     if not _on_card(planes):
         return warp_planes_plain(planes, uv, dmax)
-    return _launch_planes(warp_planes_batched, "warp_planes", planes, uv,
-                          dmax)
+    return _planes_on_card(False, True, planes, uv[:, 0], uv[:, 1],
+                           uv.stride(0), dmax), 0
 
 
 def warp_planes_shift_batched(planes, uv, dmax, border_out=True):
@@ -304,11 +411,14 @@ def warp_planes_shift_batched(planes, uv, dmax, border_out=True):
     _check(planes, uv, None, dmax)
     if not _on_card(planes):
         return warp_planes_shift_plain(planes, uv, dmax, border_out)
-    return _launch_planes(warp_planes_shift_batched, "warp_planes_shift",
-                          planes, uv, dmax, int(bool(border_out)))
+    return _planes_on_card(True, border_out, planes, uv[:, 0], uv[:, 1],
+                           uv.stride(0), dmax), 0
 
 
+# wrapper calls that launched a kernel, in all and (K5, K5p) per group
 warp_const_batched.launches = 0
 warp_const_hs_batched.launches = 0
 warp_planes_batched.launches = 0
+warp_planes_batched.group_launches = dict.fromkeys(GROUPS, 0)
 warp_planes_shift_batched.launches = 0
+warp_planes_shift_batched.group_launches = dict.fromkeys(GROUPS, 0)
