@@ -27,7 +27,9 @@ then runs these phases, each printing one JSON line:
      without border_out: tvl1occflow's level 0) and 18 (robust-expo
      RGB), at level 1 also two samples, at level 2 also 7 and 4 planes,
      each with both plane counts a thread may take (6 and 3, the
-     wrapper's first),
+     wrapper's first), then at Brox temporal's twelve levels at B = 8
+     (K5 at 0-6, K5p at 7-11) and, for K5p, TV-L1 with occlusions'
+     levels 1-4 at P = 3 without border_out,
      by a flow with a few NaN pixels and
      bands 0.5 px inside to 4.5 px past the bound on both signs of both
      axes.  The iterative
@@ -43,20 +45,33 @@ then runs these phases, each printing one JSON line:
      least 96x96 px, 30 K5p launches at the two below, each with the
      planes a thread warps at that level, 75 K7 calls, all on route
      "resident", which launches exactly the sweeps the solves need);
+     then `brox_temporal` on 9 frames (8 fields; `synth_sequence`, the
+     seed-100 pair's I0 drifted frame after frame) and `tvl1occflow` on
+     one triplet (I-1 = I0 rolled by a column) at the reference CLI
+     defaults, each level's warps recorded and held to what the level
+     sizes give (Brox temporal: 15 K5 launches at B = 8 on each level of
+     at least 96x96 px, 15 K5p below; TV-L1 with occlusions: 4 K5p
+     launches a level without border_out, 20 in all), with the SOR
+     sweeps, host reads and iterations per level;
      kernels against plain versions (both on the card), the flow against
-     the pairs' synthetic ground truth, and the HS, Brox and robust-expo
-     solvers against the reference binary's goldens (tests/goldens/);
-     then the five CLIs (`python -m tpuflow_torch.cli.<name>`, run in
-     process) on the seed-100 pair written as PFM (robust_expo_methods:
-     as RGB PNG), tvl1flow also on gray PNG, tvl1flow and
-     horn_schunck_pyramidal also verbose; the PNGs' rows are filtered as
+     the pairs' synthetic ground truth (Brox temporal's against the
+     drift), and the HS, Brox, robust-expo, Brox temporal and TV-L1-
+     occlusion solvers against the reference binary's goldens
+     (tests/goldens/); then the seven CLIs (`python -m
+     tpuflow_torch.cli.<name>`, run in process) on the seed-100 pair
+     written as PFM (robust_expo_methods: as RGB PNG), tvl1flow also on
+     gray PNG, tvl1flow and horn_schunck_pyramidal also verbose; the PNGs' rows are filtered as
      libpng filters them (mostly Paeth here): each `.flo` against the
      direct solver call on the same inputs, the kernels each run
      launched, seconds per call with the image IO, and the IO's seconds
-     alone;
+     alone (brox_temporal on the 9 frames as PFM, each flowNN.flo against
+     the direct call; tvl1occflow on the triplet as PFM, its occlusion
+     PNG equal to chi * 255 of the direct call);
   4. timing at the benchmark geometry: the batched engines at B=128
      (fields/s), the single-pair solvers on one pair (seconds per pair),
-     each over 3 reps after one warm call, with peak device memory,
+     each over 3 reps after one warm call (Brox temporal per volume and
+     TV-L1 with occlusions per triplet over 2, after the kernel timing
+     below), with peak device memory,
      where one call's time goes (per pyramid level, and by kernel under
      torch.profiler), and each kernel's time at level 0 against its
      bound and its plain version (the single-pair kernels from device
@@ -68,10 +83,11 @@ then runs these phases, each printing one JSON line:
      K5, K5p and K7's resident solves are timed as CUDA graphs between
      CUDA events (`graph_ms`), the profiler's median beside them; K5 and
      K5p at every shape where the main paths launch them, with both plane
-     counts a thread may take.  A kernel read below its bound fails the run.
+     counts a thread may take (K5 also at B = 8, Brox temporal's level
+     0).  A kernel read below its bound fails the run.
 
-Then the {"kernels": [...]} line, the card's name and power limit as
-nvidia-smi gives them, and last {"ok": true, "device": {...}}.  Every
+Then the script's wall time, the {"kernels": [...]} line, the card's
+name and power limit as nvidia-smi gives them, and last {"ok": true, "device": {...}}.  Every
 check raises on failure, so any failed phase exits non-zero.  Without a
 card, or outside a checkout, it exits non-zero and prints no result.
 """
@@ -79,6 +95,7 @@ card, or outside a checkout, it exits non-zero and prints no result.
 import contextlib
 import io
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -125,9 +142,22 @@ GOLDEN_DIR = Path(__file__).resolve().parent / "tests" / "goldens"
 GOLDENS = GOLDEN_DIR / "solvers.npz"
 BROX_DMAX0 = 8  # level 0's displacement bound at max_motion 8
 CLI_REPS = 3
+# Brox temporal at the reference CLI defaults: 9 frames, 8 fields
+# (tools/bench_all7.py:98), zfactor 0.75; TV-L1 with occlusions' zfactor
+TEMPORAL_FRAMES, TEMPORAL_ZFACTOR = 9, 0.75
+OCC_ZFACTOR = 0.5
+# reps after the first call of the two multi-frame CLIs (seconds each)
+SEQUENCE_CLI_REPS = 1
+
+
+T_START = time.perf_counter()
 
 
 def emit(**fields):
+    """One JSON line; a phase's line also carries the seconds since the
+    script started (`t_s`)."""
+    if "phase" in fields:
+        fields["t_s"] = time.perf_counter() - T_START
     print(json.dumps(fields), flush=True)
 
 
@@ -284,19 +314,22 @@ def check_classic(dev, ny, nx, niter=CLASSIC_NITER):
     return out
 
 
-def brox_levels():
-    """(nx, ny) of the single-pair solvers' levels at 1024x436 at the
-    reference CLI defaults: 5 (clamped on min(nx, ny))."""
+def brox_levels(zfactor=0.5, nscales=10):
+    """(nx, ny) of a solver's levels at 1024x436 at the reference CLI
+    defaults, nscales clamped on min(nx, ny) >= 16: 5 for the
+    single-pair Brox solvers (zfactor 0.5, nscales 10) and for TV-L1 with
+    occlusions (0.5, 100), 12 for Brox temporal (0.75, 100)."""
     from tpuflow_torch.data import NX, NY
     from tpuflow_torch.ops.pyramid import clamp_nscales, pyramid_sizes
 
-    return pyramid_sizes(NX, NY, 0.5, clamp_nscales(NX, NY, 0.5, 10,
-                                                     use_hypot=False))
+    return pyramid_sizes(NX, NY, zfactor, clamp_nscales(NX, NY, zfactor,
+                                                        nscales,
+                                                        use_hypot=False))
 
 
-def brox_dmax(scale):
-    """`brox_spatial`'s displacement bound at level `scale` (max_motion 8)."""
-    return max(3, -(-BROX_DMAX0 // 2 ** scale))
+def brox_dmax(scale, zfactor=0.5):
+    """The solvers' displacement bound at level `scale` (max_motion 8)."""
+    return max(3, math.ceil(BROX_DMAX0 * zfactor ** scale))
 
 
 def brox_inputs(dev, ny, nx):
@@ -339,14 +372,18 @@ def warp_case(dev, ny, nx, dmax, n_planes, batch=1):
     mirror image of sample 0; the flow `past_bound_flow` (sample 1's
     mirrored and halved), with a few NaN pixels, as the first two planes
     of a (batch, 6, ny, nx) state, so that uv has the batch stride of a
-    view of the solver state."""
+    view of the solver state.  Samples 2k and 2k+1 repeat 0 and 1, the
+    planes scaled by 1 + k / 4 and the flow by 1 - k / 8."""
     six = brox_inputs(dev, ny, nx)[2]
     planes = torch.cat([six * 1.5 ** c for c in range(-(-n_planes // 6))],
                        dim=1)[:, :n_planes]
     flow = past_bound_flow(ny, nx, dmax, dev)
     flow[0, :, ny // 3, nx // 5:nx // 5 + 8] = float("nan")
-    planes = torch.cat([planes, planes.flip(-1)])[:batch].contiguous()
-    flow = torch.cat([flow, 0.5 * flow.flip(-1)])[:batch]
+    k = torch.arange(batch, device=dev)[:, None, None, None] // 2
+    planes = (torch.cat([planes, planes.flip(-1)]).repeat(-(-batch // 2), 1, 1, 1)
+              [:batch] * (1 + k / 4)).contiguous()
+    flow = (torch.cat([flow, 0.5 * flow.flip(-1)]).repeat(-(-batch // 2), 1, 1, 1)
+            [:batch] * (1 - k / 8))
     state = torch.zeros((batch, 6, ny, nx), device=dev)
     state[:, :2] = flow
     return planes, state[:, :2]
@@ -421,6 +458,28 @@ def warp_planes_checks(dev, shift):
             for bo in modes:
                 out += check_warp_planes(dev, ny, nx, brox_dmax(s), n_planes,
                                          batch, shift, bo)
+    return out
+
+
+def sequence_warp_checks(dev, shift):
+    """K5 (K5p with `shift`) at the shapes the two multi-frame solvers
+    give it at 1024x436: Brox temporal's levels at B = 8 and P = 6 with
+    their dmax (K5 at levels of at least 96x96 px, K5p below), and, for
+    K5p, TV-L1 with occlusions' levels at P = 3 without border_out (level
+    0 is `warp_planes_checks`'); flows past the bound, each check with
+    both plane counts a thread may take."""
+    from tpuflow_torch.ops.interp import K5_MIN_PIXELS
+
+    out = []
+    for s, (nx, ny) in enumerate(brox_levels(TEMPORAL_ZFACTOR, 100)):
+        if (nx * ny < K5_MIN_PIXELS) == shift:
+            out += check_warp_planes(dev, ny, nx,
+                                     brox_dmax(s, TEMPORAL_ZFACTOR), 6,
+                                     TEMPORAL_FRAMES - 1, shift)
+    if shift:
+        for s, (nx, ny) in list(enumerate(brox_levels(OCC_ZFACTOR, 100)))[1:]:
+            out += check_warp_planes(dev, ny, nx, brox_dmax(s, OCC_ZFACTOR),
+                                     3, 1, True, False)
     return out
 
 
@@ -517,10 +576,15 @@ def _warp_uv_plain(planes, u, v, dmax, shift=False, border_out=True):
     from tpuflow_torch.ops.warp import (warp_planes_plain,
                                         warp_planes_shift_plain)
 
-    uv = torch.stack([u, v])[None]
+    single = planes.ndim == 3
+    if single:
+        planes, u, v = planes[None], u[None], v[None]
+    uv = torch.stack([u, v], dim=1)
     if shift:
-        return warp_planes_shift_plain(planes[None], uv, dmax, border_out)[0][0]
-    return warp_planes_plain(planes[None], uv, dmax)[0][0]
+        out = warp_planes_shift_plain(planes, uv, dmax, border_out)[0]
+    else:
+        out = warp_planes_plain(planes, uv, dmax)[0]
+    return out[0] if single else out
 
 
 @contextlib.contextmanager
@@ -724,6 +788,28 @@ def pair_main_path(dev, counters, engine, synth_bound, expect,
     return out
 
 
+def sequence_goldens(dev):
+    """Brox temporal (nscales 2) and TV-L1 with occlusions (nscales 3) on
+    the card through the kernels, as the goldens were made, against the
+    reference binary's flows: the largest EPE over Brox temporal's
+    fields, TV-L1-occlusion's EPE and its occluded share's distance from
+    the reference's."""
+    from tpuflow_torch import brox_temporal, tvl1occflow
+
+    def on(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=dev)
+
+    g = np.load(GOLDEN_DIR / "brox_temporal.npz")
+    u, v = brox_temporal(g["vol"], nscales=2, clamp_scales=False, device=dev)
+    out = {"brox_temporal_s2": max(epe(u, v, on(g["s2_u"]), on(g["s2_v"])))}
+    g = np.load(GOLDEN_DIR / "tvl1occ.npz")
+    u1, u2, chi = tvl1occflow(*(g[k] for k in ("Im1", "I0", "I1")), nscales=3,
+                              clamp_scales=False, device=dev)
+    out["tvl1occ_m3"] = epe(u1, u2, on(g["m3_u"]), on(g["m3_v"]))
+    out["tvl1occ_m3_chi_mean_diff"] = abs(float(chi.mean()) - float(g["m3_chi"].mean()))
+    return out
+
+
 def pair_golden_epe(engine, dev, name, key):
     """EPE of `engine` (nscales 3, as the goldens were made) on the
     golden pair against the reference binary's flow `key`_u, `key`_v of
@@ -800,6 +886,218 @@ def pair_timing(engine, I0, I1, counters, groups, levels_via_callback):
     return out
 
 
+@contextlib.contextmanager
+def recording_warps(calls):
+    """Append (kernel, border_out, B, P, ny, nx, dmax) to `calls` for each
+    warp the solvers ask for inside the block (`interp.warp_planes_uv`,
+    through which `warp_planes_bounded` makes each K5 and K5p launch),
+    passing the call through."""
+    import tpuflow_torch.ops.interp as interp
+
+    inner = interp.warp_planes_uv
+
+    def record(planes, u, v, dmax, shift=False, border_out=True):
+        B, P = (1, planes.shape[0]) if planes.ndim == 3 else planes.shape[:2]
+        calls.append(("K5p" if shift else "K5", bool(border_out), int(B),
+                      int(P), *planes.shape[-2:], int(dmax)))
+        return inner(planes, u, v, dmax, shift, border_out)
+
+    with swapped([(interp, "warp_planes_uv", record)]):
+        yield
+
+
+def level_warps(calls, marks, levels, expect):
+    """Per level, the warps recorded by `recording_warps` between the
+    level callback's marks [(scale, calls so far)] against
+    `expect(scale, nx, ny)`'s list; the K5 and K5p launches per plane
+    group the expected calls make; and the levels that differ (or
+    "levels" where the callback did not mark each level once, coarsest
+    first)."""
+    from tpuflow_torch.ops.warp import GROUPS, device_group
+
+    names = {"K5": "warp_planes_batched", "K5p": "warp_planes_shift_batched"}
+    groups = {n: dict.fromkeys(GROUPS, 0) for n in names.values()}
+    per_level, wrong, start = {}, [], 0
+    for scale, end in marks:
+        nx, ny = levels[scale]
+        want, got = expect(scale, nx, ny), calls[start:end]
+        start = end
+        for kernel, _, B, _, lny, lnx, _ in want:
+            groups[names[kernel]][device_group(B, lny, lnx,
+                                               torch.cuda.current_device())] += 1
+        per_level[str(scale)] = {"size": [ny, nx], "warps": len(got),
+                                 "warp": list(got[0]) if got else None,
+                                 "as_expected": got == want}
+        if got != want:
+            wrong.append(scale)
+    if start != len(calls) or [s for s, _ in marks] != list(
+            range(len(levels) - 1, -1, -1)):
+        wrong.append("levels")
+    return per_level, groups, wrong
+
+
+def check_sequence_launches(out, launches, groups, want_groups, wrong):
+    """Fail unless every level warped as expected, K5's and K5p's
+    launches in all and per group are those of the expected warps, and
+    no other kernel launched."""
+    want = {k: sum(g.values()) for k, g in want_groups.items()}
+    others = {k: n for k, n in launches.items() if n and k not in want}
+    if wrong or groups != want_groups or others or any(
+            launches[k] != n for k, n in want.items()):
+        raise AssertionError(f"{out['engine']}: warps not as the level sizes "
+                             f"give (levels {wrong}; expected {want_groups}): {out}")
+
+
+def temporal_main_path(dev, counters):
+    """Brox temporal at the reference CLI defaults on TEMPORAL_FRAMES
+    frames of 1024x436 (`synth_sequence`, seed SEED0: synth_pair's I0
+    drifted by synth_flow frame after frame) through the kernels, then
+    through the plain versions (EPE <= 0.01 per field).  Per level the
+    recorded warps must be 15 (one per outer iteration) of K5 at B = 8 on
+    levels of at least 96x96 px and of K5p below, with border_out, P = 6
+    and the level's dmax, and the wrappers' launches in all and per
+    group those the level sizes give; per level also the SOR sweeps and
+    the host reads of its stop."""
+    from tpuflow_torch import brox_temporal
+    from tpuflow_torch.data import NX, NY, synth_flow, synth_sequence
+    from tpuflow_torch.ops.interp import K5_MIN_PIXELS
+    from tpuflow_torch.ops.warp import (warp_planes_batched,
+                                        warp_planes_shift_batched)
+
+    vol = torch.from_numpy(synth_sequence(TEMPORAL_FRAMES, NY, NX,
+                                          seed=SEED0)).to(dev)
+    B = TEMPORAL_FRAMES - 1
+    calls, marks = [], []
+
+    def run():
+        return brox_temporal(vol, with_diag=True, level_callback=lambda s, _:
+                             marks.append((s, len(calls))))
+
+    with recording_warps(calls):
+        (u, v, diags), seconds, launches = counted(counters, run)
+    groups = {k.__name__: dict(k.group_launches)
+              for k in (warp_planes_batched, warp_planes_shift_batched)}
+    with plain_versions():
+        pu, pv = brox_temporal(vol)
+    if tuple(u.shape) != (B, NY, NX) or not bool(
+            torch.isfinite(u).all() and torch.isfinite(v).all()):
+        raise AssertionError("brox_temporal: flow of the wrong shape or not finite")
+
+    def expect(s, nx, ny):
+        kernel = "K5" if nx * ny >= K5_MIN_PIXELS else "K5p"
+        return [(kernel, True, B, 6, ny, nx,
+                 brox_dmax(s, TEMPORAL_ZFACTOR))] * 15
+
+    per_level, want_groups, wrong = level_warps(
+        calls, marks, brox_levels(TEMPORAL_ZFACTOR, 100), expect)
+    for s, d in enumerate(diags):
+        per_level.setdefault(str(s), {}).update(sweeps=int(d["iterations"].sum()),
+                                 host_reads=d["host_reads"])
+    tu, tv = (torch.as_tensor(f, dtype=torch.float32, device=dev)
+              for f in synth_flow(NY, NX))
+    out = {"engine": "brox_temporal", "shape": [TEMPORAL_FRAMES, NY, NX],
+           "seconds": seconds, "seconds_per_frame_pair": seconds / B,
+           "launches": launches, "warp_group_launches": groups,
+           "sweeps": sum(int(d["iterations"].sum()) for d in diags),
+           "host_reads": sum(d["host_reads"] for d in diags),
+           "epe_kernels_vs_plain": epe(u, v, pu, pv),
+           "epe_vs_drift": epe(u, v, -tu, -tv), "per_level": per_level}
+    if not max(out["epe_kernels_vs_plain"]) <= 0.01:
+        raise AssertionError(f"brox_temporal: kernels vs plain EPE > 0.01: {out}")
+    check_sequence_launches(out, launches, groups, want_groups, wrong)
+    return out
+
+
+def occ_triplet(dev):
+    """(I-1, I0, I1) at 1024x436: synth_pair's seed-SEED0 pair with I-1 =
+    I0 rolled by one column (tools/bench_all7.py:130)."""
+    from tpuflow_torch.data import NX, NY, synth_pair
+
+    I0, I1 = synth_pair(NY, NX, seed=SEED0)
+    return [torch.from_numpy(a).to(dev)
+            for a in (np.ascontiguousarray(np.roll(I0, 1, axis=1)), I0, I1)]
+
+
+def occ_main_path(dev, counters):
+    """TV-L1 with occlusions at the reference CLI defaults on
+    `occ_triplet` through the kernels, then through the plain versions
+    (flow EPE <= 0.01; the occlusion maps' agreement reported).  Per
+    level the recorded warps must be two 3-plane stacks per warp, K5p
+    without border_out at the level's dmax, and K5p's launches in all
+    and per group those the level sizes give; per level also each warp's
+    iterations, its last error and the host reads of its stop."""
+    from tpuflow_torch import tvl1occflow
+    from tpuflow_torch.data import NX, NY, synth_flow
+    from tpuflow_torch.models.tvl1occflow import DEFAULT_WARPS
+    from tpuflow_torch.ops.warp import (warp_planes_batched,
+                                        warp_planes_shift_batched)
+
+    triplet = occ_triplet(dev)
+    calls, marks = [], []
+
+    def run():
+        return tvl1occflow(*triplet, with_diag=True, level_callback=lambda s, _:
+                           marks.append((s, len(calls))))
+
+    with recording_warps(calls):
+        (u1, u2, chi, diags), seconds, launches = counted(counters, run)
+    groups = {k.__name__: dict(k.group_launches)
+              for k in (warp_planes_batched, warp_planes_shift_batched)}
+    with plain_versions():
+        pu1, pu2, pchi = tvl1occflow(*triplet)
+    if tuple(u1.shape) != (NY, NX) or not bool(
+            torch.isfinite(u1).all() and torch.isfinite(u2).all()):
+        raise AssertionError("tvl1occflow: flow of the wrong shape or not finite")
+
+    def expect(s, nx, ny):
+        # I1's stack by +u and I-1's by -u, once per warp
+        return [("K5p", False, 1, 3, ny, nx,
+                 brox_dmax(s, OCC_ZFACTOR))] * (2 * DEFAULT_WARPS)
+
+    per_level, want_groups, wrong = level_warps(
+        calls, marks, brox_levels(OCC_ZFACTOR, 100), expect)
+    for s, d in enumerate(diags):
+        per_level.setdefault(str(s), {}).update(iterations=d["iterations"].tolist(),
+                                 error=d["error"].tolist(),
+                                 host_reads=d["host_reads"])
+    tu, tv = (torch.as_tensor(f, dtype=torch.float32, device=dev)
+              for f in synth_flow(NY, NX))
+    out = {"engine": "tvl1occflow", "shape": [3, NY, NX], "seconds": seconds,
+           "launches": launches, "warp_group_launches": groups,
+           "host_reads": sum(d["host_reads"] for d in diags),
+           "epe_kernels_vs_plain": epe(u1, u2, pu1, pu2),
+           "chi_agreement_kernels_vs_plain": float((chi == pchi).double().mean()),
+           "occluded_share": float(chi.mean()),
+           "epe_vs_synthetic_flow": epe(u1, u2, -tu, -tv),
+           "per_level": per_level}
+    if not out["epe_kernels_vs_plain"] <= 0.01:
+        raise AssertionError(f"tvl1occflow: kernels vs plain EPE > 0.01: {out}")
+    check_sequence_launches(out, launches, groups, want_groups, wrong)
+    return out
+
+
+def solver_timing(name, run, counters, groups, reps=2):
+    """Seconds per call of `run(level_callback)` over `reps` calls (its
+    main path's calls warmed it), peak device memory, launches per call
+    and the breakdown of one call (seconds to each level's end, device
+    time by kernel group, the busy and idle share)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset(counters)
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run(None)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"engine": name, "seconds_per_call": sum(times) / reps,
+            "rep_s": times,
+            "launches_per_call": {c.__name__: c.launches / reps
+                                  for c in counters},
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "breakdown": breakdown(run, groups)}
+
+
 def device_ms(fn, n, per_call=None, flush_l2=True):
     """Device time of one call of `fn` under torch.profiler, over n calls
     after one warm call; and what the profiler recorded.  At B = 1 a
@@ -856,43 +1154,57 @@ def device_ms(fn, n, per_call=None, flush_l2=True):
 
 
 def warp_shapes():
-    """The shapes where the main paths launch K5 and K5p, and the ones
-    their next callers will: (wrapper name, P, ny, nx, dmax, border_out,
-    L2 states to time).  K5 at Brox levels 0-2 (level 0's 25 MB is
-    timed from device memory and warm in the 50 MB L2; levels 1-2 warm,
-    as the solver finds them), K5p at levels 3-4 (warm); K5p at level 0
-    with P = 3 and no border_out (tvl1occflow's level 0) and with P = 6
-    past the bound, and K5 at level 0 with robust-expo RGB's P = 18, all
-    three from device memory."""
+    """The shapes where the main paths launch K5 and K5p: (wrapper name,
+    B, P, ny, nx, dmax, border_out, L2 states to time).  K5 at Brox
+    levels 0-2 (level 0's 25 MB is timed from device memory and warm in
+    the 50 MB L2; levels 1-2 warm, as the solver finds them), K5p at
+    levels 3-4 (warm); K5p at level 0 with P = 3 and no border_out
+    (tvl1occflow's level 0) and with P = 6 past the bound, and K5 at
+    level 0 with robust-expo RGB's P = 18, all three from device memory;
+    Brox temporal's levels at B = 8 (K5 at 7, K5p at 5; level 0, 86 MB,
+    from device memory and warm, the others warm); tvl1occflow's levels
+    1-4 (K5p, P = 3, no border_out, warm)."""
     from tpuflow_torch.ops.interp import K5_MIN_PIXELS
+
+    def name(nx, ny):
+        if nx * ny >= K5_MIN_PIXELS:
+            return "warp_planes_batched"
+        return "warp_planes_shift_batched"
 
     out = []
     for s, (nx, ny) in enumerate(brox_levels()):
-        big = nx * ny >= K5_MIN_PIXELS
-        name = "warp_planes_batched" if big else "warp_planes_shift_batched"
         l2 = (True, False) if s == 0 else (False,)
-        out.append((name, 6, ny, nx, brox_dmax(s), True, l2))
+        out.append((name(nx, ny), 1, 6, ny, nx, brox_dmax(s), True, l2))
     nx, ny = brox_levels()[0]
-    out.append(("warp_planes_shift_batched", 3, ny, nx, BROX_DMAX0, False,
+    out.append(("warp_planes_shift_batched", 1, 3, ny, nx, BROX_DMAX0, False,
                 (True,)))
-    out.append(("warp_planes_shift_batched", 6, ny, nx, BROX_DMAX0, True,
+    out.append(("warp_planes_shift_batched", 1, 6, ny, nx, BROX_DMAX0, True,
                 (True,)))
-    out.append(("warp_planes_batched", 18, ny, nx, BROX_DMAX0, True, (True,)))
+    out.append(("warp_planes_batched", 1, 18, ny, nx, BROX_DMAX0, True,
+                (True,)))
+    for s, (nx, ny) in enumerate(brox_levels(TEMPORAL_ZFACTOR, 100)):
+        l2 = (True, False) if s == 0 else (False,)
+        out.append((name(nx, ny), TEMPORAL_FRAMES - 1, 6, ny, nx,
+                    brox_dmax(s, TEMPORAL_ZFACTOR), True, l2))
+    for s, (nx, ny) in list(enumerate(brox_levels(OCC_ZFACTOR, 100)))[1:]:
+        out.append(("warp_planes_shift_batched", 1, 3, ny, nx,
+                    brox_dmax(s, OCC_ZFACTOR), False, (False,)))
     return out
 
 
-def warp_inputs(dev, shift, P, ny, nx, dmax):
+def warp_inputs(dev, shift, B, P, ny, nx, dmax):
     """(planes, uv) of a `warp_timing` shape: P planes cycled from the six
     Brox planes, warped by the synthetic flow (K5) or `past_bound_flow`
-    (K5p)."""
+    (K5p), the same in each of the B samples."""
     from tpuflow_torch.data import synth_flow
 
     p = torch.cat([brox_inputs(dev, ny, nx)[2]] * 3, dim=1)[:, :P]
     if shift:
-        return p.contiguous(), past_bound_flow(ny, nx, dmax, dev)
-    f = torch.stack([-torch.as_tensor(a, dtype=torch.float32, device=dev)
-                     for a in synth_flow(ny, nx)])[None]
-    return p.contiguous(), f
+        f = past_bound_flow(ny, nx, dmax, dev)
+    else:
+        f = torch.stack([-torch.as_tensor(a, dtype=torch.float32, device=dev)
+                         for a in synth_flow(ny, nx)])[None]
+    return p.repeat(B, 1, 1, 1).contiguous(), f.repeat(B, 1, 1, 1)
 
 
 def warp_timing(dev):
@@ -915,9 +1227,9 @@ def warp_timing(dev):
                 "warp_planes_shift_batched": (warp_planes_shift_batched,
                                               True, K5P_FLOPS_PX_BASE)}
     out = {name: {"shapes": []} for name in wrappers}
-    for name, P, ny, nx, dmax, bo, l2s in warp_shapes():
+    for name, B, P, ny, nx, dmax, bo, l2s in warp_shapes():
         wrapper, shift, flops = wrappers[name]
-        p, f = warp_inputs(dev, shift, P, ny, nx, dmax)
+        p, f = warp_inputs(dev, shift, B, P, ny, nx, dmax)
         if shift:
             def kernel(group=None):
                 if group is None:
@@ -934,11 +1246,11 @@ def warp_timing(dev):
 
             def plain():
                 return warp_planes_plain(p, f, dmax)
-        group, other = planes_groups(1, ny, nx)
+        group, other = planes_groups(B, ny, nx)
         k = {"shape": list(p.shape), "dmax": dmax, "border_out": bo,
              "group": group}
         k["bound_ms"], k["bound_by"] = bound_ms(
-            ny * nx, 2 * P + 2, flops + K5_FLOPS_PX_PLANE * P)
+            B * ny * nx, 2 * P + 2, flops + K5_FLOPS_PX_PLANE * P)
         k["plain_ms"] = device_ms(plain, 5)[0]
         for flush in l2s:
             state = "l2_flushed" if flush else "l2_warm"
@@ -949,7 +1261,7 @@ def warp_timing(dev):
             r["other_group_ms"] = graph_ms(lambda: kernel(other), n, flush)
             k[state] = r
         out[name]["shapes"].append(k)
-        if ny * nx == NY * NX and P == 6 and bo and "ms" not in out[name]:
+        if ny * nx == NY * NX and B == 1 and P == 6 and bo and "ms" not in out[name]:
             out[name].update(ms=k["l2_flushed"]["ms"], plain_ms=k["plain_ms"],
                              bound_ms=k["bound_ms"], bound_by=k["bound_by"])
     return out
@@ -1106,15 +1418,115 @@ def quiet(fn):
     return result, len(out.getvalue().splitlines()) + len(err.getvalue().splitlines())
 
 
-def main_path_cli(dev, counters, per_pair):
-    """The five CLIs at 1024x436 through the kernels (tvl1flow and
-    horn_schunck_pyramidal also verbose, tvl1flow also on gray PNG): per
-    run the launches (counts set to 0 just before it; K5's and K5p's per
-    group too), the .flo against
-    the direct solver call on the inputs the CLI read (EPE <= 1e-5),
-    seconds per call, image IO included, over CLI_REPS calls after the
-    counted one, and apart the seconds of the IO alone (both inputs read
-    as the CLI reads them, the .flo written)."""
+def cli_calls(counters, cli, argv, reps):
+    """`cli.main(argv)`, quiet, with every launch count set to 0 just
+    before it, then `reps` more calls: its exit code, lines printed,
+    seconds, launches (K5's and K5p's per group too), and the seconds
+    per call of the reps, image IO included."""
+    from tpuflow_torch.ops.warp import (warp_planes_batched,
+                                        warp_planes_shift_batched)
+
+    (rc, lines), seconds, launches = counted(
+        counters, lambda: quiet(lambda: cli.main(argv)))
+    groups = {k.__name__: dict(k.group_launches)
+              for k in (warp_planes_batched, warp_planes_shift_batched)}
+    reps_s = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        quiet(lambda: cli.main(argv))
+        torch.cuda.synchronize()
+        reps_s.append(time.perf_counter() - t0)
+    return {"rc": rc, "lines_printed": lines, "first_call_s": seconds,
+            "seconds_per_call": sum(reps_s) / len(reps_s), "rep_s": reps_s,
+            "launches": launches, "warp_group_launches": groups}
+
+
+def sequence_clis(dev, counters, tmp, mains):
+    """The two multi-frame CLIs at their defaults through the kernels:
+    brox_temporal on `synth_sequence`'s TEMPORAL_FRAMES frames written as
+    PFM (each dir/flowNN.flo against the direct call on the frames the
+    CLI read, EPE <= 1e-5), and tvl1occflow on `occ_triplet` written as
+    PFM (the .flo against the direct call, EPE <= 1e-5, and the
+    occlusion PNG equal to its chi * 255).  Each CLI's launches, in all
+    and per group, must equal its main path's in `mains`; seconds per
+    call over SEQUENCE_CLI_REPS after the counted one, image IO
+    included, and the IO's seconds alone (the inputs read as the CLI
+    reads them, its outputs written)."""
+    import tpuflow_torch.cli.brox_temporal as temporal_cli
+    import tpuflow_torch.cli.tvl1occflow as occ_cli
+    from tpuflow_torch import brox_temporal, tvl1occflow
+    from tpuflow_torch.data import NX, NY, synth_sequence
+    from tpuflow_torch.io import (read_flo, read_image, write_flo,
+                                  write_image, write_pfm)
+
+    def gray(path):
+        return read_image(path, gray=True).astype(np.float32)
+
+    frames = [str(tmp / f"F{k}.pfm") for k in range(TEMPORAL_FRAMES)]
+    for path, im in zip(frames, synth_sequence(TEMPORAL_FRAMES, NY, NX,
+                                               seed=SEED0)):
+        write_pfm(path, im)
+    outdir = tmp / "temporal"
+    outdir.mkdir()
+    names = [f"flow{k:02d}.flo" for k in range(TEMPORAL_FRAMES - 1)]
+    argv = [str(TEMPORAL_FRAMES), *frames, "18", "7", "100", "0.75", "0.0001",
+            "1", "15", str(outdir), "0"]
+    res = cli_calls(counters, temporal_cli, argv, SEQUENCE_CLI_REPS)
+    flows = [read_flo(str(outdir / n)) for n in names]
+    t0 = time.perf_counter()
+    vol = np.stack([gray(p) for p in frames])
+    for u, v in flows:
+        write_flo(str(tmp / "io.flo"), u, v)
+    res["io_seconds_per_call"] = time.perf_counter() - t0
+    du, dv = (t.cpu().numpy() for t in brox_temporal(vol))
+    res.update(files=sorted(p.name for p in outdir.iterdir()) == names,
+               epe_vs_direct_call=max(float(np.hypot(u - du[k], v - dv[k]).mean())
+                                      for k, (u, v) in enumerate(flows)),
+               finite=all(bool(np.isfinite(f).all()) for f in flows))
+    out = {"brox_temporal": res}
+
+    paths = [str(tmp / n) for n in ("Im1.pfm", "I0.pfm", "I1.pfm")]
+    for path, im in zip(paths, occ_triplet(dev)):
+        write_pfm(path, im.cpu().numpy())
+    flo, png = str(tmp / "occ.flo"), str(tmp / "occ.png")
+    res = cli_calls(counters, occ_cli, [*paths, paths[1], flo, png],
+                    SEQUENCE_CLI_REPS)
+    u, v = read_flo(flo)
+    occ = read_image(png, gray=True)
+    t0 = time.perf_counter()
+    imgs = [gray(p) for p in (*paths, paths[1])]
+    write_flo(str(tmp / "io.flo"), u, v)
+    write_image(str(tmp / "io.png"), occ)
+    res["io_seconds_per_call"] = time.perf_counter() - t0
+    du, dv, dchi = (t.cpu().numpy() for t in tvl1occflow(*imgs))
+    res.update(epe_vs_direct_call=float(np.hypot(u - du, v - dv).mean()),
+               occlusion_png_equal=bool(np.array_equal(occ, dchi * 255.0)),
+               finite=bool(np.isfinite(u).all() and np.isfinite(v).all()))
+    out["tvl1occflow"] = res
+
+    for name, res in out.items():
+        main = mains[name]
+        if not (res["rc"] == 0 and res["finite"] and res.get("files", True)
+                and res.get("occlusion_png_equal", True)
+                and res["epe_vs_direct_call"] <= 1e-5):
+            raise AssertionError(f"CLI {name} failed or disagrees with its solver: {res}")
+        if res["launches"] != main["launches"] or \
+                res["warp_group_launches"] != main["warp_group_launches"]:
+            raise AssertionError(f"CLI {name}: launches not those of its main "
+                                 f"path {main['launches']}: {res}")
+    return out
+
+
+def main_path_cli(dev, counters, per_pair, mains):
+    """The seven CLIs at 1024x436 through the kernels.  The five
+    two-frame CLIs (tvl1flow and horn_schunck_pyramidal also verbose,
+    tvl1flow also on gray PNG): per run the launches (counts set to 0
+    just before it; K5's and K5p's per group too), the .flo against the
+    direct solver call on the inputs the CLI read (EPE <= 1e-5), seconds
+    per call, image IO included, over CLI_REPS calls after the counted
+    one, and apart the seconds of the IO alone (both inputs read as the
+    CLI reads them, the .flo written); then `sequence_clis`, held to the
+    main paths `mains` of brox_temporal and tvl1occflow."""
     import tpuflow_torch.cli.brox_spatial as brox_cli
     import tpuflow_torch.cli.horn_schunck_classic as classic_cli
     import tpuflow_torch.cli.horn_schunck_pyramidal as hs_cli
@@ -1179,16 +1591,8 @@ def main_path_cli(dev, counters, per_pair):
         flo = str(Path(tmp) / "out.flo")
         for name, (cli, head, reader, direct, expect, *tail) in runs.items():
             argv = [paths.get(a, a) for a in head] + [flo] + (tail[0] if tail else [])
-            (rc, lines), seconds, launches = counted(
-                counters, lambda: quiet(lambda: cli.main(argv)))
-            warp_groups = {k.__name__: dict(k.group_launches)
-                           for k in (K5, K5p)}
-            reps = []
-            for _ in range(CLI_REPS):
-                t0 = time.perf_counter()
-                quiet(lambda: cli.main(argv))
-                torch.cuda.synchronize()
-                reps.append(time.perf_counter() - t0)
+            res = cli_calls(counters, cli, argv, CLI_REPS)
+            launches, warp_groups = res["launches"], res["warp_group_launches"]
             u, v = read_flow(flo)
             io_reps = []
             for _ in range(CLI_REPS):
@@ -1197,18 +1601,15 @@ def main_path_cli(dev, counters, per_pair):
                 write_flow(str(Path(tmp) / "io.flo"), u, v)
                 io_reps.append(time.perf_counter() - t0)
             du, dv = (t.float().cpu().numpy() for t in direct(*inputs))
-            res = {"rc": rc, "lines_printed": lines, "first_call_s": seconds,
-                   "seconds_per_call": sum(reps) / len(reps), "rep_s": reps,
-                   "io_seconds_per_call": sum(io_reps) / len(io_reps),
-                   "launches": launches, "warp_group_launches": warp_groups,
-                   "epe_vs_direct_call": float(np.hypot(u - du, v - dv).mean()),
-                   "finite": bool(np.isfinite(u).all() and np.isfinite(v).all()),
-                   "shape": list(u.shape)}
+            res.update(io_seconds_per_call=sum(io_reps) / len(io_reps),
+                       epe_vs_direct_call=float(np.hypot(u - du, v - dv).mean()),
+                       finite=bool(np.isfinite(u).all() and np.isfinite(v).all()),
+                       shape=list(u.shape))
             out[name] = res
             wrong = {k.__name__: launches[k.__name__] for k, n in expect.items()
                      if (launches[k.__name__] == 0 if n is None
                          else launches[k.__name__] != n)}
-            if rc != 0 or not res["finite"] or not res["epe_vs_direct_call"] <= 1e-5:
+            if res["rc"] != 0 or not res["finite"] or not res["epe_vs_direct_call"] <= 1e-5:
                 raise AssertionError(f"CLI {name} failed or disagrees with its solver: {res}")
             if wrong:
                 raise AssertionError(f"CLI {name}: launches {wrong} not as expected: {res}")
@@ -1220,6 +1621,7 @@ def main_path_cli(dev, counters, per_pair):
                                     for k, g in groups_expected.items()}:
                 raise AssertionError(f"CLI {name}: K5 / K5p groups not as "
                                      f"expected: {res}")
+        out.update(sequence_clis(dev, counters, Path(tmp), mains))
     return out
 
 
@@ -1231,6 +1633,8 @@ HS_GROUPS = (("warp_const", "K3 warp_const_hs"), ("hs_sor_tiles", "K4 hs_sor"),
              ("hs_sor_level", "K4 hs_sor"), ("hs_sor_settle", "K4 hs_sor"),
              ("stop_finalize", "K4 hs_sor"), ("gemm", "zoom matmul"))
 CLASSIC_GROUPS = (("hs_classic_block", "K6 hs_classic"),)
+SEQUENCE_GROUPS = (("warp_planes_kernel", "K5/K5p warp_planes"),
+                   ("gemm", "zoom matmul"))
 BROX_GROUPS = (("warp_planes_kernel", "K5/K5p warp_planes"),
                ("brox_sor_resident", "K7 brox_sor"),
                ("brox_sor_color", "K7 brox_sor"),
@@ -1270,9 +1674,11 @@ def breakdown(run, groups, levels=True, name_parts=()):
         run(None)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        t_end = time.perf_counter()
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    out["profiler_processing_s"] = time.perf_counter() - t_end
     by_group = {}
     for name, ms, count in kernels:
         group = next((g for key, g in groups if key in name), "other")
@@ -1435,9 +1841,10 @@ def main():
         return 1
     import os
 
-    from tpuflow_torch import (_build, brox_spatial, hs_classic_batched,
-                               hs_pyramidal_batched, robust_expo, tvl1_batched)
-    from tpuflow_torch.data import NX, NY
+    from tpuflow_torch import (_build, brox_spatial, brox_temporal,
+                               hs_classic_batched, hs_pyramidal_batched,
+                               robust_expo, tvl1_batched, tvl1occflow)
+    from tpuflow_torch.data import NX, NY, synth_sequence
     from tpuflow_torch.ops.brox import brox_sor_error
     from tpuflow_torch.ops.hs import hs_sor_error
     from tpuflow_torch.ops.hs_classic import hs_classic_fused
@@ -1486,9 +1893,12 @@ def main():
                              check_classic(dev, 109, 257)],
         # every level where the Brox paths launch K5 or K5p, and level 0
         # at tvl1occflow's P = 3 without border_out, each with 6 and 3
-        # planes a thread
-        "warp_planes_batched": warp_planes_checks(dev, shift=False),
-        "warp_planes_shift_batched": warp_planes_checks(dev, shift=True),
+        # planes a thread; then Brox temporal's levels at B = 8 and
+        # tvl1occflow's levels 1-4
+        "warp_planes_batched": warp_planes_checks(dev, shift=False)
+                               + sequence_warp_checks(dev, shift=False),
+        "warp_planes_shift_batched": warp_planes_checks(dev, shift=True)
+                                     + sequence_warp_checks(dev, shift=True),
         # route "resident" at the five Brox levels of 1024x436 (B=1),
         # route "stream" at B=2 x 436x1024
         "brox_sor_error": [check_brox_sor(dev, ny, nx, brox_dmax(s))
@@ -1538,6 +1948,11 @@ def main():
     paths["robust_expo"] = pair_main_path(dev, counters, robust_expo, 0.1,
                                           per_pair, warp_groups,
                                           method_type=1)
+    # the multi-frame solvers at the reference CLI defaults: Brox
+    # temporal on 9 frames (8 fields, 12 levels at zfactor 0.75), TV-L1
+    # with occlusions on one triplet (5 levels, 2 warps)
+    paths["brox_temporal"] = temporal_main_path(dev, counters)
+    paths["tvl1occflow"] = occ_main_path(dev, counters)
     goldens = {
         "hs_pyramidal": golden_epe(hs_pyramidal_batched, dev, "hs_pyramidal"),
         "hs_classic": golden_epe(hs_classic_batched, dev, "hs_classic",
@@ -1546,15 +1961,23 @@ def main():
                                            "spatial_s3"),
         "robust_expo_gray_m1": pair_golden_epe(robust_expo, dev,
                                                "robust_expo", "gray_m1"),
+        **sequence_goldens(dev),
     }
     for name, out in paths.items():
         emit(phase=f"main_path_{name}", **out)
     emit(phase="goldens_epe", **goldens)
     emit(phase="main_path_cli", shape=[NY, NX], seed=SEED0,
-         runs=main_path_cli(dev, counters, per_pair))
+         runs=main_path_cli(dev, counters, per_pair,
+                            {k: paths[k] for k in ("brox_temporal",
+                                                   "tvl1occflow")}))
+    # the bounds the JAX package's tests hold its fast warp to
+    # (tests/test_brox_temporal.py, tests/test_tvl1occflow.py)
     if not (goldens["hs_pyramidal"] <= 0.05 and goldens["hs_classic"] <= 1e-4
             and goldens["brox_spatial_s3"] <= 0.05
-            and goldens["robust_expo_gray_m1"] <= 0.05):
+            and goldens["robust_expo_gray_m1"] <= 0.05
+            and goldens["brox_temporal_s2"] <= 1e-2
+            and goldens["tvl1occ_m3"] <= 0.05
+            and goldens["tvl1occ_m3_chi_mean_diff"] < 0.08):
         raise AssertionError(f"solvers disagree with the goldens: {goldens}")
 
     I0, I1 = pairs(B_TIME, NY, NX, dev)
@@ -1579,8 +2002,24 @@ def main():
     emit(phase="level0_kernels", batch=1, shape=[NY, NX], **lvl0_pair)
     lvl0.update(lvl0_pair)
     warps = warp_timing(dev)
-    emit(phase="warp_planes_timing", batch=1, **warps)
+    emit(phase="warp_planes_timing", **warps)
     lvl0.update(warps)
+    # the multi-frame solvers' timing last: a profiled Brox temporal call
+    # records about 474,000 kernels, and in a run that timed it before
+    # K7's 300-sweep solve the profiler then recorded none of that
+    # solve's kernels in three windows
+    vol = torch.from_numpy(synth_sequence(TEMPORAL_FRAMES, NY, NX,
+                                          seed=SEED0)).to(dev)
+    t = solver_timing("brox_temporal",
+                      lambda cb: brox_temporal(vol, level_callback=cb),
+                      counters, SEQUENCE_GROUPS)
+    t["seconds_per_frame_pair"] = t["seconds_per_call"] / (TEMPORAL_FRAMES - 1)
+    emit(phase="timing", **t)
+    del vol
+    triplet = occ_triplet(dev)
+    emit(phase="timing", **solver_timing(
+        "tvl1occflow", lambda cb: tvl1occflow(*triplet, level_callback=cb),
+        counters, SEQUENCE_GROUPS))
 
     path_of = {"warp_const_batched": "tvl1", "tvl1_iterate_error": "tvl1",
                "warp_const_hs_batched": "hs", "hs_sor_error": "hs",
@@ -1628,6 +2067,7 @@ def main():
                   for key, v in c["l2_flushed"].items()
                   if key.endswith("ms") and key != "profiler_ms"
                   and v < c["bound_ms"]]
+    emit(phase="wall", seconds=time.perf_counter() - T_START)
     emit(kernels=kernels)
     if below:
         raise AssertionError(f"device times below their bound: {below}")

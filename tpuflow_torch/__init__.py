@@ -11,8 +11,9 @@ Ported so far: the batched engines `tvl1_batched` and
 `hs_pyramidal_batched` (tpuflow_torch.models.batch) and
 `hs_classic_batched` (tpuflow_torch.models.hs_classic); the single-pair
 solvers `tvl1_multiscale`, `hs_pyramidal`, `hs_classic`,
-`brox_spatial` and `robust_expo`; image and flow IO
-(tpuflow_torch.io); and the CLIs of those five methods, run as
+`brox_spatial`, `robust_expo`, `brox_temporal` (a frame sequence) and
+`tvl1occflow` (a triplet, with occlusions); image and flow IO
+(tpuflow_torch.io); and the seven reference CLIs, run as
 `python -m tpuflow_torch.cli.<name>` (tpuflow_torch.cli).
 """
 
@@ -20,11 +21,13 @@ __version__ = "0.1.0"
 
 from tpuflow_torch.models.batch import hs_pyramidal_batched, tvl1_batched
 from tpuflow_torch.models.brox_spatial import brox_spatial
+from tpuflow_torch.models.brox_temporal import brox_temporal
 from tpuflow_torch.models.hs_classic import hs_classic, hs_classic_batched
 from tpuflow_torch.models.hs_pyramidal import hs_pyramidal
 from tpuflow_torch.models.robust_expo import robust_expo
 from tpuflow_torch.models.tvl1 import tvl1_multiscale
+from tpuflow_torch.models.tvl1occflow import tvl1occflow
 
-__all__ = ["brox_spatial", "hs_classic", "hs_classic_batched", "hs_pyramidal",
-           "hs_pyramidal_batched", "robust_expo", "tvl1_batched",
-           "tvl1_multiscale"]
+__all__ = ["brox_spatial", "brox_temporal", "hs_classic", "hs_classic_batched",
+           "hs_pyramidal", "hs_pyramidal_batched", "robust_expo",
+           "tvl1_batched", "tvl1_multiscale", "tvl1occflow"]

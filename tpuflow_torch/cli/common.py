@@ -61,11 +61,12 @@ def load_pair(path0, path1, dtype=np.float32):
     return I0, I1
 
 
-def _host(a):
+def host_array(a):
+    """A tensor on any device, or an array, as a numpy array."""
     return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def save_flow(outfile, u, v):
     """Write (u, v), tensors on any device or arrays, by extension (.uv
     -> JUV, else .flo; reference src/iio.cpp:3655-3675)."""
-    write_flow(outfile, _host(u), _host(v))
+    write_flow(outfile, host_array(u), host_array(v))

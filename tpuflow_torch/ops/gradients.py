@@ -9,6 +9,8 @@
     (reference src/operators.cpp:35-78, Chambolle's discretization)
   * `dxx`, `dyy`, `dxy` — second derivatives with clamped neighbours
     (reference src/operators.cpp:263-328)
+  * `centered_gradient3` — central differences over (x, y, frame) for
+    Brox temporal (reference src/operators.cpp:413-499)
 
 All take (H, W) or (..., H, W) tensors and return the same shape/dtype.
 """
@@ -31,6 +33,19 @@ def centered_gradient(I):
     dx = 0.5 * (_shift_clamp(I, 1, -1) - _shift_clamp(I, -1, -1))
     dy = 0.5 * (_shift_clamp(I, 1, -2) - _shift_clamp(I, -1, -2))
     return dx, dy
+
+
+def centered_gradient3(vol):
+    """Central-difference gradient (dx, dy, dt) of a (T, H, W) volume:
+    the spatial part is `centered_gradient` per frame, dt is
+    0.5*(f[t+1] - f[t-1]) with one-sided halves at the first and last
+    frame, and 0 when T == 1."""
+    dx, dy = centered_gradient(vol)
+    if vol.shape[0] > 1:
+        dt = 0.5 * (_shift_clamp(vol, 1, 0) - _shift_clamp(vol, -1, 0))
+    else:
+        dt = torch.zeros_like(vol)
+    return dx, dy, dt
 
 
 def forward_gradient(f):

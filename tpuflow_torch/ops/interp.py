@@ -20,7 +20,9 @@ results:
 planes and `warp_planes_shift` (K5p) on small ones, routed as the JAX
 package routes them (tpuflow_torch.ops.warp has both kernels, and
 `warp_planes_uv` hands them u and v as they are: a call launches the
-kernel and nothing else).
+kernel and nothing else).  Both, and `warp_by_mode`, also take B
+stacks (B, P, H, W) with B flow fields (B, H, W), as Brox temporal
+warps its frames: one launch for all B.
 """
 
 import os
@@ -101,18 +103,23 @@ def resolve_warp_mode(mode, device):
     return mode
 
 
-def warp_by_mode(planes, u, v, warp_mode, dmax):
-    """A (P, H, W) stack warped by (u, v) with border_out, as the solvers
-    warp: `warp_planes_bounded` for warp_mode "fast", the exact gather
-    `warp_planes` for "exact"."""
+def warp_by_mode(planes, u, v, warp_mode, dmax, border_out=True):
+    """A (P, H, W) stack warped by (u, v), or B stacks (B, P, H, W) each
+    by its field of (B, H, W) u and v, as the solvers warp:
+    `warp_planes_bounded` for warp_mode "fast", the exact gather
+    `warp_planes` (field by field) for "exact"."""
     if warp_mode == "fast":
-        return warp_planes_bounded(planes, u, v, dmax)
-    return warp_planes(planes, u, v, border_out=True)
+        return warp_planes_bounded(planes, u, v, dmax, border_out)
+    if planes.ndim == 4:
+        return torch.stack([warp_planes(p, a, b, border_out)
+                            for p, a, b in zip(planes, u, v)])
+    return warp_planes(planes, u, v, border_out)
 
 
 def warp_planes_bounded(planes, u, v, dmax, border_out=True, fast_only=None,
                         with_overflow=False):
-    """Displacement-bounded warp of a (P, H, W) stack by one flow field:
+    """Displacement-bounded warp of a (P, H, W) stack by one flow field
+    (or of B stacks (B, P, H, W) by B fields, one launch):
     `warp_planes(..., border_out)` for flows whose integer displacement
     stays within dmax.
 

@@ -364,28 +364,34 @@ def warp_planes_on_group(planes, uv, dmax, group, shift=False,
 
 def warp_planes_uv(planes, u, v, dmax, shift=False, border_out=True):
     """The warp of one (P, ny, nx) stack by the flow planes u and v, each
-    (ny, nx): K5 (K5p with `shift`) with u and v handed to the kernel as
-    they are, no stacked copy; the plain version on CPU tensors."""
-    planes = planes[None].contiguous()
+    (ny, nx), or of B stacks (B, P, ny, nx) by u and v each (B, ny, nx):
+    K5 (K5p with `shift`) with u and v handed to the kernel as they are
+    (one batch stride for both), no stacked copy; the plain version on
+    CPU tensors."""
+    single = planes.ndim == 3
+    if single:
+        planes, u, v = planes[None], u[None], v[None]
+    planes = planes.contiguous()
     if not _on_card(planes):
-        uv = torch.stack([u, v])[None]
+        uv = torch.stack([u, v], dim=1)
         if shift:
             out, _ = warp_planes_shift_batched(planes, uv, dmax, border_out)
         else:
             out, _ = warp_planes_batched(planes, uv, dmax)
-        return out[0]
-    ny, nx = planes.shape[-2:]
+        return out[0] if single else out
+    B, _, ny, nx = planes.shape
     u, v = u.contiguous(), v.contiguous()
     for name, t in (("planes", planes), ("u", u), ("v", v)):
         if t.dtype != torch.float32 or t.device != planes.device:
             raise ValueError(f"{name} must be float32 on {planes.device}, "
                              f"got {t.dtype} on {t.device}")
-    if tuple(u.shape) != (ny, nx) or tuple(v.shape) != (ny, nx):
-        raise ValueError(f"u and v must be {(ny, nx)}, got "
+    if tuple(u.shape) != (B, ny, nx) or tuple(v.shape) != (B, ny, nx):
+        raise ValueError(f"u and v must be {(B, ny, nx)}, got "
                          f"{tuple(u.shape)} and {tuple(v.shape)}")
     if int(dmax) != dmax or dmax < 0:
         raise ValueError(f"dmax must be a non-negative integer, got {dmax}")
-    return _planes_on_card(shift, border_out, planes, u, v, 0, dmax)[0]
+    out = _planes_on_card(shift, border_out, planes, u, v, ny * nx, dmax)
+    return out[0] if single else out
 
 
 def warp_planes_batched(planes, uv, dmax):

@@ -4,7 +4,9 @@ The solvers have no weights: what carries across between the two
 packages is the coarse-to-fine state of a pyramid level, as the JAX
 engines' `level_callback` hands it out or as a level checkpoint holds
 it (numpy arrays `u1`, `u2` (B, ny, nx) and the int32 counter `oflow`
-for the batched engines; `u1`, `u2` (ny, nx) for robust-expo).
+for the batched engines; `u1`, `u2` (ny, nx) for robust-expo; `u1`,
+`u2` (T-1, ny, nx) for Brox temporal; `u1`, `u2` and the occlusion map
+`chi` (ny, nx) for TV-L1 with occlusions).
 `resume_from_jax` turns such a state into the `resume=(scale, state)`
 argument of the port's engines, so a run started under JAX can finish
 on the card.  Brox spatial has no resume hook in either package, and no
@@ -19,10 +21,11 @@ from tpuflow_torch._device import resolve_device
 
 def resume_from_jax(scale, state_np, device=None):
     """`(scale, state)` for `tvl1_batched(..., resume=...)`,
-    `hs_pyramidal_batched(..., resume=...)` or `robust_expo(...,
-    resume=...)`, from a level state of the JAX function of the same
+    `hs_pyramidal_batched`, `robust_expo`, `brox_temporal` or
+    `tvl1occflow`, from a level state of the JAX function of the same
     name (the batched engines hand out {"u1", "u2", "oflow"},
-    robust-expo {"u1", "u2"}).
+    robust-expo {"u1", "u2"}, Brox temporal {"u1", "u2"} each (T-1, h,
+    w), TV-L1 with occlusions {"u1", "u2", "chi"}).
 
     Flow fields become float32 tensors on `device` (default: the card);
     integer fields stay integer."""
