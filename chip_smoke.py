@@ -96,6 +96,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -1835,12 +1836,260 @@ def level_solve(dev, batch, ny=55, nx=128):
     return k
 
 
+# ---- the surface beyond the solvers: ops, dtype, warm-up, checkpoints,
+# ---- and the lanes on torch.distributed
+
+# warp coordinates in float32 near 1024 carry 6e-5 px of rounding: the
+# card's float32 ops against the CPU's float64 within 1e-4 of each
+# output's largest value (at least 1)
+OPS_REL_TOL = 1e-4
+ALL_METHODS = ("tvl1", "hs", "occflow", "robust_expo", "brox_spatial",
+               "brox_temporal")
+WARMUP_GEOMETRY = (B_CHECK, 436, 1024)
+# the tile lane's warp halo: TV-L1 from zero flow at level 0 moves the
+# seed pair's flow (at most 2 px) well inside halo - 3
+TILE_WARP_HALO = 8
+TILE_EPE_TOL = 1e-5
+
+
+def ops_checks(dev):
+    """Each op that the solvers do not call, and `warp_stack`'s default
+    and window, on `dev` in float32 against the same op on the CPU in
+    float64, at 436x1024 (the seed-SEED0 image, its synthetic flow and
+    random coordinates, filters and mask from the seed)."""
+    from tpuflow_torch import ops
+    from tpuflow_torch.data import NX, NY, synth_flow, synth_pair
+
+    I0, I1 = synth_pair(NY, NX, seed=SEED0)
+    u, v = synth_flow(NY, NX)
+    rng = np.random.default_rng(SEED0)
+    mask = rng.standard_normal(9)
+    fx, fy = ops.sgauss_kernel(1.5, 9), ops.sgauss_kernel(1.0, 6)
+    xx = rng.uniform(-3, NX + 3, (NY, NX))
+    yy = rng.uniform(-3, NY + 3, (NY, NX))
+    stack = np.stack([I0, I1, I0 - I1])
+    gy, gx = np.mgrid[0:NY, 0:NX].astype(np.float64)
+    # one window of the stack: a 109x256 tile at (109, 512) with a halo
+    # of 8, warped by the synthetic flow; against the whole image's warp
+    oy, ox, h, w, halo = NY // 4, NX // 2, NY // 4, NX // 4, 8
+    win = stack[:, oy - halo:oy + h + halo, ox - halo:ox + w + halo]
+    wx = (gx + u)[oy:oy + h, ox:ox + w]
+    wy = (gy + v)[oy:oy + h, ox:ox + w]
+    window = (oy - halo, ox - halo, NY, NX)
+    cases = {
+        "mask3x3": (lambda I: ops.mask3x3(I, mask), (I0,)),
+        "sepconvol": (lambda I: ops.sepconvol(I, fx, fy), (I0,)),
+        "bicubic_at": (ops.bicubic_at, (I0, xx, yy)),
+        "warp": (ops.warp, (I0, u, v)),
+        "warp_stack_shifted_grid": (ops.warp_stack,
+                                    (stack, gx + 3.0, gy - 2.0)),
+        "warp_stack_window": (
+            lambda p, x, y: ops.warp_stack(p, x, y, True, window=window),
+            (win, wx, wy)),
+        "interpolate_bilinear": (
+            ops.interpolate_bilinear,
+            (I0, np.clip(xx, 0, NX - 1.001), np.clip(yy, 0, NY - 1.001))),
+        "image_restriction": (lambda I: ops.image_restriction(
+            I, (NX // 3, NY // 3)), (I0,)),
+    }
+    out = {}
+    for name, (fn, args) in cases.items():
+        got = fn(*(torch.as_tensor(np.asarray(a, np.float32), device=dev)
+                   for a in args))
+        ref = fn(*(torch.as_tensor(np.asarray(a, np.float64)) for a in args))
+        if got.dtype != torch.float32 or ref.dtype != torch.float64:
+            raise AssertionError(f"{name}: dtypes {got.dtype}, {ref.dtype}")
+        err = float((got.cpu().double() - ref).abs().max())
+        scale = max(1.0, float(ref.abs().max()))
+        out[name] = {"shape": list(got.shape), "max_abs_err": err,
+                     "max_rel_err": err / scale}
+    whole = ops.warp_stack(torch.as_tensor(stack), torch.as_tensor(wx),
+                           torch.as_tensor(wy), True)
+    got = ops.warp_stack(torch.as_tensor(win), torch.as_tensor(wx),
+                         torch.as_tensor(wy), True, window=window)
+    out["warp_stack_window"]["window_vs_whole_f64"] = float(
+        (got - whole).abs().max())
+    bad = {k: c for k, c in out.items() if not c["max_rel_err"] <= OPS_REL_TOL}
+    if bad or out["warp_stack_window"]["window_vs_whole_f64"] != 0:
+        raise AssertionError(f"ops disagree with their float64 CPU run: {out}")
+    return out
+
+
+def dtype_check(dev, counters):
+    """`tvl1_batched` on float64 inputs on the card: float32 results,
+    one warning, bit-equal to the call on float32 inputs."""
+    import warnings
+
+    from tpuflow_torch import tvl1_batched
+    from tpuflow_torch.data import NX, NY
+
+    I0, I1 = (t.cpu().numpy() for t in pairs(B_CHECK, NY, NX, dev))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        (u64, v64), seconds, launches = counted(
+            counters, lambda: tvl1_batched(I0.astype(np.float64),
+                                           I1.astype(np.float64)))
+    u32, v32 = tvl1_batched(I0, I1)
+    cast = [str(w.message) for w in caught if "float64" in str(w.message)]
+    out = {"shape": [B_CHECK, NY, NX], "dtype": str(u64.dtype),
+           "warnings": cast, "seconds": seconds, "launches": launches,
+           "bit_equal_to_float32_inputs": bool(
+               torch.equal(u64, u32) and torch.equal(v64, v32))}
+    out["other_warnings"] = [str(w.message) for w in caught
+                             if "float64" not in str(w.message)]
+    if not (u64.dtype == v64.dtype == torch.float32 and len(cast) == 1
+            and out["bit_equal_to_float32_inputs"]):
+        raise AssertionError(f"float64 inputs on the card: {out}")
+    return out
+
+
+def warmup_check(dev):
+    """`warmup` of all six methods at (B_CHECK, 436, 1024) on the card,
+    then one `tvl1_batched` call at that geometry (its seconds)."""
+    from tpuflow_torch import tvl1_batched, warmup
+
+    seconds = warmup([WARMUP_GEOMETRY], methods=ALL_METHODS)
+    I0, I1 = pairs(*WARMUP_GEOMETRY, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    u, v = tvl1_batched(I0, I1)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    if not bool(torch.isfinite(u).all() and torch.isfinite(v).all()):
+        raise AssertionError("tvl1_batched after warmup: flow not finite")
+    return {"geometry": list(WARMUP_GEOMETRY), "methods": list(ALL_METHODS),
+            "warmup_s": seconds, "first_tvl1_batched_call_s": first}
+
+
+def checkpoint_check(dev):
+    """`tvl1_batched` (B_CHECK pairs at 1024x436) with
+    `checkpoint_callback` into a temporary directory, then resumed from
+    the finest level written and from level 1: each equal to the
+    uninterrupted run (the kernels sum in a fixed order)."""
+    from tpuflow_torch import tvl1_batched
+    from tpuflow_torch.data import NX, NY
+    from tpuflow_torch.utils.checkpoint import (checkpoint_callback,
+                                                load_level_checkpoint)
+    from tpuflow_torch.utils.convert import resume_from_jax
+
+    I0, I1 = pairs(B_CHECK, NY, NX, dev)
+    u, v = tvl1_batched(I0, I1)
+    with tempfile.TemporaryDirectory() as tmp:
+        uc, vc = tvl1_batched(I0, I1, level_callback=checkpoint_callback(tmp))
+        levels = sorted(os.listdir(tmp))
+        scale, finest = load_level_checkpoint(tmp)
+        uf, vf = tvl1_batched(I0, I1, resume=resume_from_jax(scale, finest))
+        u1, v1 = tvl1_batched(I0, I1, resume=resume_from_jax(
+            1, load_level_checkpoint(tmp, 1)))
+    out = {"shape": [B_CHECK, NY, NX], "levels_written": levels,
+           "finest": scale,
+           "callback_run_equal": bool(torch.equal(uc, u) and torch.equal(vc, v)),
+           "resumed_finest_equal": bool(torch.equal(uf, u) and torch.equal(vf, v)),
+           "resumed_level1_equal": bool(torch.equal(u1, u) and torch.equal(v1, v))}
+    if not (scale == 0 and out["callback_run_equal"]
+            and out["resumed_finest_equal"] and out["resumed_level1_equal"]):
+        raise AssertionError(f"checkpoint and resume: {out}")
+    return out
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_lanes(dev, counters, I0, I1):
+    """The lanes of tpuflow_torch.parallel at world size 1: a one-rank
+    process group (NCCL on the card; nothing falls back to gloo), the
+    data-parallel lane (`dp_shard` and `tvl1_batched` on the pairs I0,
+    I1 over mesh {"batch": 1}, then `dp_efficiency` at n = 1), and the
+    tile lane (`tvl1_scale_tiled` on mesh {"y": 1, "x": 1} at the full
+    436x1024 against the port's `tvl1_scale`, which runs K2)."""
+    import torch.distributed as dist
+
+    from tpuflow_torch import tvl1_batched
+    from tpuflow_torch.models.common import PRESMOOTHING_SIGMA
+    from tpuflow_torch.models.tvl1 import tvl1_scale
+    from tpuflow_torch.ops import gaussian, normalize_joint
+    from tpuflow_torch.ops.tvl1 import tvl1_iterate_error
+    from tpuflow_torch.ops.warp import warp_const_batched
+    from tpuflow_torch.parallel.distributed import (dp_efficiency, dp_shard,
+                                                    initialize)
+    from tpuflow_torch.parallel.mesh import (gather_batch, gather_spatial,
+                                             make_mesh, spatial_block)
+    from tpuflow_torch.parallel.tiled import TileGeom, tvl1_scale_tiled
+
+    B, ny, nx = I0.shape
+    if not initialize(f"127.0.0.1:{free_port()}", 1, 0, device=dev):
+        raise AssertionError("initialize did not start a process group")
+    try:
+        backend = dist.get_backend()
+        probe = torch.ones(1, device=dev)
+        dist.all_reduce(probe)
+        out = {"backend": backend, "world_size": dist.get_world_size(),
+               "all_reduce_ok": float(probe) == 1.0}
+        want = "nccl" if torch.device(dev).type == "cuda" else "gloo"
+        if backend != want or not out["all_reduce_ok"]:
+            raise AssertionError(f"process group: {out}")
+
+        mesh = make_mesh({"batch": 1})
+        a, b = dp_shard((I0, I1), mesh, device=dev)
+        (u, v), seconds, launches = counted(counters,
+                                            lambda: tvl1_batched(a, b))
+        u, v = gather_batch(u, mesh), gather_batch(v, mesh)
+        ud, vd = tvl1_batched(I0, I1)
+        out["dp"] = {"shape": [B, ny, nx], "seconds": seconds,
+                     "fields_per_sec": B / seconds, "launches": launches,
+                     "equal_to_direct_call": bool(torch.equal(u, ud)
+                                                  and torch.equal(v, vd)),
+                     "efficiency": dp_efficiency(
+                         lambda x, y: tvl1_batched(x, y),
+                         lambda n: (I0[:n], I1[:n]), B, device=dev)}
+        if not (out["dp"]["equal_to_direct_call"]
+                and launches["warp_const_batched"] > 0
+                and launches["tvl1_iterate_error"] > 0):
+            raise AssertionError(f"data-parallel lane: {out['dp']}")
+
+        n0, n1 = (gaussian(t, PRESMOOTHING_SIGMA)
+                  for t in normalize_joint(I0[0], I1[0]))
+        mesh = make_mesh({"y": 1, "x": 1})
+        geom = TileGeom(mesh, ny, nx)
+        t0, t1 = spatial_block(n0, mesh), spatial_block(n1, mesh)
+        zero = torch.zeros_like(t0)
+        (ut, vt, diag), seconds, launches = counted(
+            counters, lambda: tvl1_scale_tiled(t0, t1, zero, zero, geom,
+                                               TILE_WARP_HALO,
+                                               with_diag=True))
+        ut, vt = gather_spatial(ut, mesh), gather_spatial(vt, mesh)
+        (up, vp, pdiag), pseconds, plaunches = counted(
+            counters, lambda: tvl1_scale(n0, n1, zero, zero, with_diag=True))
+        out["tiles"] = {
+            "shape": [ny, nx], "mesh": {"y": 1, "x": 1},
+            "seconds": seconds, "host_reads": diag["host_reads"],
+            "iterations": diag["iterations"],
+            "tvl1_scale_iterations": pdiag["iterations"].tolist(),
+            "tvl1_scale_seconds": pseconds,
+            "tvl1_scale_k2_launches": plaunches["tvl1_iterate_error"],
+            "launches": launches,
+            "epe_vs_tvl1_scale": epe(ut, vt, up, vp)}
+        if not (out["tiles"]["iterations"] == out["tiles"]["tvl1_scale_iterations"]
+                and out["tiles"]["epe_vs_tvl1_scale"] <= TILE_EPE_TOL
+                and bool(torch.isfinite(ut).all())):
+            raise AssertionError(f"tile lane: {out['tiles']}")
+    finally:
+        dist.destroy_process_group()
+    out["note"] = ("no multi-GPU exchange ran: the machine has one card, so "
+                   "both lanes ran at world size 1 (halo exchanges took "
+                   "their fill-only path)")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    import os
-
     from tpuflow_torch import (_build, brox_spatial, brox_temporal,
                                hs_classic_batched, hs_pyramidal_batched,
                                robust_expo, tvl1_batched, tvl1occflow)
@@ -1869,6 +2118,8 @@ def main():
          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
          build_s=time.perf_counter() - t0,
          libs={k: str(v.name) for k, v in libs.items()})
+    # in a process that has built its kernels but launched none yet
+    emit(phase="warmup", **warmup_check(dev))
 
     checks = {
         "warp_const_batched": [check_warp(dev, 436, 1024, 8, "tvl1"),
@@ -1979,6 +2230,9 @@ def main():
             and goldens["tvl1occ_m3"] <= 0.05
             and goldens["tvl1occ_m3_chi_mean_diff"] < 0.08):
         raise AssertionError(f"solvers disagree with the goldens: {goldens}")
+    emit(phase="ops_vs_float64_cpu", shape=[NY, NX], ops=ops_checks(dev))
+    emit(phase="dtype_float64_inputs", **dtype_check(dev, counters))
+    emit(phase="checkpoint", **checkpoint_check(dev))
 
     I0, I1 = pairs(B_TIME, NY, NX, dev)
     timings = [
@@ -1995,6 +2249,7 @@ def main():
     ]
     for t in timings:
         emit(phase="timing", **t)
+    emit(phase="parallel", **parallel_lanes(dev, counters, I0, I1))
     lvl0 = level0_kernels(dev, I0, I1)
     emit(phase="level0_kernels", batch=B_TIME, shape=[NY, NX], **lvl0)
     del I0, I1

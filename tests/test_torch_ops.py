@@ -7,6 +7,8 @@ precision; only the summation order of the resampling matmuls may
 differ).  Port vs goldens: the tolerances of tests/test_ops.py.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,11 +16,13 @@ import torch
 
 from tpuflow import ops as jops
 from tpuflow.models.batch import _normalize_pair_batched as j_normalize_pair
-from tpuflow_torch.ops import gaussian as tgauss
 from tpuflow_torch.ops import gradients as tgrad
 from tpuflow_torch.ops import interp as tinterp
 from tpuflow_torch.ops import normalize as tnorm
 from tpuflow_torch.ops import pyramid as tpyr
+
+# the module: tpuflow_torch.ops exports the function `gaussian` by that name
+tgauss = importlib.import_module("tpuflow_torch.ops.gaussian")
 
 torch.set_num_threads(2)
 

@@ -154,7 +154,8 @@ def test_scale_matches_jax_and_reference(occ_goldens, jax_occ):
 def test_multiscale_matches_jax_and_reference(occ_goldens, jax_occ):
     g = occ_goldens
     (ju1, ju2, jchi, jdiags, _), _ = jax_occ
-    u1, u2, chi, diags = tvl1occflow(*(g[k] for k in ("Im1", "I0", "I1")),
+    u1, u2, chi, diags = tvl1occflow(*(g[k].astype(np.float32)
+                                       for k in ("Im1", "I0", "I1")),
                                      nscales=3, clamp_scales=False,
                                      with_diag=True, device="cpu")
     assert u1.dtype == torch.float32 and tuple(u1.shape) == (64, 96)
@@ -217,7 +218,8 @@ def test_cli_writes_flow_and_occlusions(occ_goldens, tmp_path, capsys):
     rc = cli.main([*paths, paths[1], flo, occ, "0", "0.15", "0.01", "0.15",
                    "0.3", "3", "0.5", "2", "0.01", "1"], device="cpu")
     assert rc == 0
-    u1, u2, chi = tvl1occflow(*(g[k] for k in ("Im1", "I0", "I1")),
+    u1, u2, chi = tvl1occflow(*(g[k].astype(np.float32)
+                                for k in ("Im1", "I0", "I1")),
                               nscales=3, device="cpu")
     fu, fv = read_flo(flo)
     np.testing.assert_allclose(fu, u1.numpy(), rtol=0, atol=1e-5)

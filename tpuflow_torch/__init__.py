@@ -12,13 +12,20 @@ Ported so far: the batched engines `tvl1_batched` and
 `hs_classic_batched` (tpuflow_torch.models.hs_classic); the single-pair
 solvers `tvl1_multiscale`, `hs_pyramidal`, `hs_classic`,
 `brox_spatial`, `robust_expo`, `brox_temporal` (a frame sequence) and
-`tvl1occflow` (a triplet, with occlusions); image and flow IO
-(tpuflow_torch.io); and the seven reference CLIs, run as
-`python -m tpuflow_torch.cli.<name>` (tpuflow_torch.cli).
+`tvl1occflow` (a triplet, with occlusions); the operators
+(tpuflow_torch.ops); image and flow IO (tpuflow_torch.io); the seven
+reference CLIs, run as `python -m tpuflow_torch.cli.<name>`
+(tpuflow_torch.cli); level checkpoints, `warmup` and tracing
+(tpuflow_torch.utils); and the data-parallel and halo-exchange tile
+lanes on `torch.distributed` (tpuflow_torch.parallel).
+
+Inputs are computed in float32 on the card and in their own dtype
+(float32 or float64) on the CPU (tpuflow_torch.config).
 """
 
 __version__ = "0.1.0"
 
+from tpuflow_torch.config import default_dtype
 from tpuflow_torch.models.batch import hs_pyramidal_batched, tvl1_batched
 from tpuflow_torch.models.brox_spatial import brox_spatial
 from tpuflow_torch.models.brox_temporal import brox_temporal
@@ -27,7 +34,9 @@ from tpuflow_torch.models.hs_pyramidal import hs_pyramidal
 from tpuflow_torch.models.robust_expo import robust_expo
 from tpuflow_torch.models.tvl1 import tvl1_multiscale
 from tpuflow_torch.models.tvl1occflow import tvl1occflow
+from tpuflow_torch.utils.warmup import warmup
 
-__all__ = ["brox_spatial", "brox_temporal", "hs_classic", "hs_classic_batched",
-           "hs_pyramidal", "hs_pyramidal_batched", "robust_expo",
-           "tvl1_batched", "tvl1_multiscale", "tvl1occflow"]
+__all__ = ["brox_spatial", "brox_temporal", "default_dtype", "hs_classic",
+           "hs_classic_batched", "hs_pyramidal", "hs_pyramidal_batched",
+           "robust_expo", "tvl1_batched", "tvl1_multiscale", "tvl1occflow",
+           "warmup"]

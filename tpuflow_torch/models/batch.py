@@ -17,7 +17,7 @@ kernels:
 each inner solve stopping per sample.  On the card the kernels run at
 every level; on the CPU (device="cpu") their plain PyTorch versions
 run at every level.  The layout is unpadded (B, C, ny, nx), contiguous,
-float32.
+float32 on the card (float32 or float64 on the CPU).
 
 Two stopping modes:
   * stop="error" — the reference CLI's operating point: per-sample
@@ -33,10 +33,10 @@ reference's own degradation for out-of-frame motion.
 
 import math
 
-import numpy as np
 import torch
 
-from tpuflow_torch._device import float32_inputs
+from tpuflow_torch._device import compute_inputs
+from tpuflow_torch.config import numpy_dtype
 from tpuflow_torch.models.common import run_pyramid_state
 from tpuflow_torch.models.hs_pyramidal import (DEFAULT_ALPHA, DEFAULT_MAXITER,
                                                DEFAULT_NSCALES, DEFAULT_TOL,
@@ -121,7 +121,7 @@ def tvl1_scale_batched(I0, I1, u1, u2, dmax, tau, lam, theta, thresh, caps,
                        ee=2, iterations=None):
     """Batched single-scale TV-L1 with bounded-displacement warps.
 
-    I0, I1, u1, u2: (B, ny, nx) float32.  `thresh` is the stopping
+    I0, I1, u1, u2: (B, ny, nx), one float dtype.  `thresh` is the stopping
     threshold epsilon^2 * size (thresh < 0: every warp runs exactly its
     cap); `caps` the per-warp iteration caps; `ee` and `iterations` as
     in `_run_warps`.  Returns (u1, u2)."""
@@ -145,7 +145,7 @@ def hs_scale_batched(I1, I2, u, v, dmax, alpha, thresh, caps, ee=2,
                      iterations=None):
     """Batched single-scale warping Horn-Schunck.
 
-    I1, I2, u, v: (B, ny, nx) float32.  `thresh` = tol^2 * size
+    I1, I2, u, v: (B, ny, nx), one float dtype.  `thresh` = tol^2 * size
     (src/horn_schunck_pyramidal.cpp:143,230; thresh < 0: every warp runs
     exactly its cap); `caps` the per-warp sweep caps; `ee` and
     `iterations` as in `_run_warps`.  Returns (u, v)."""
@@ -185,8 +185,9 @@ def _batched_pyramid(I0, I1, nscales, zfactor, max_motion, thresh_base,
         dmax = max(3, math.ceil(max_motion * (zfactor ** scale)))
         l0, l1 = level_images
         cny, cnx = l0.shape[-2:]
-        # float32 arithmetic, as the stopping test runs in float32
-        thresh = float(np.float32(thresh_base) * np.float32(cny * cnx))
+        # in the images' dtype, as the stopping test compares in it
+        f = numpy_dtype(l0.dtype)
+        thresh = float(f(thresh_base) * f(cny * cnx))
         its = None if iterations is None else iterations.setdefault(scale, [])
         u1, u2 = solve_scale(l0, l1, state["u1"], state["u2"], dmax, thresh,
                              caps_all[scale], its)
@@ -228,9 +229,10 @@ def tvl1_batched(I0, I1, tau=0.25, lam=0.15, theta=0.3, nscales=None,
                  warp_early_exit=True, device=None):
     """Batched multiscale TV-L1: (B, H, W) pairs -> (B, H, W) flows.
 
-    Inputs (tensors or arrays) are moved to `device` as float32; the
-    default device is the card, and with no card present the call
-    raises unless device="cpu" is given.
+    Inputs (tensors or arrays) are moved to `device` in the dtype it
+    computes in (`compute_inputs`: float32 on the card, float32 or
+    float64 on the CPU); the default device is the card, and with no
+    card present the call raises unless device="cpu" is given.
 
     stop="error" (default) reproduces the reference CLI's operating
     point: per-sample data-dependent stopping at `epsilon`.
@@ -250,7 +252,7 @@ def tvl1_batched(I0, I1, tau=0.25, lam=0.15, theta=0.3, nscales=None,
     iterations, whereas the reference always runs all `warps` warps
     (src/tvl1flow.cpp:92).  `warp_early_exit=False` gives the strictly
     reference-faithful schedule."""
-    I0, I1 = float32_inputs(device, I0, I1)
+    I0, I1 = compute_inputs(device, I0, I1)
     ny, nx = I0.shape[-2:]
     if nscales is None:
         nscales = clamp_nscales(nx, ny, zfactor, 100, use_hypot=True)
@@ -301,7 +303,7 @@ def hs_pyramidal_batched(I1, I2, alpha=DEFAULT_ALPHA, nscales=None,
     whereas the reference always runs all `warps` warps
     (src/horn_schunck_pyramidal.cpp:111-240).  `warp_early_exit=False`
     gives the strictly reference-faithful schedule."""
-    I1, I2 = float32_inputs(device, I1, I2)
+    I1, I2 = compute_inputs(device, I1, I2)
     ny, nx = I1.shape[-2:]
     if nscales is None:
         nscales = clamp_nscales(nx, ny, zfactor, DEFAULT_NSCALES,

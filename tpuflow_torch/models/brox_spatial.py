@@ -38,16 +38,17 @@ to the exact gather warp.
 
 `_sor_sweep` (masked full planes, quotients) is the reference-form twin
 that the plain version of K7 is tested against; `_sor_solve(...,
-fused=False)` runs it, on request only.  Computation is float32.
+fused=False)` runs it, on request only.  Computation is float32 on the
+card, in the inputs' dtype (float32 or float64) on the CPU.
 """
 
 import math
 import sys
 
-import numpy as np
 import torch
 
-from tpuflow_torch._device import float32_inputs
+from tpuflow_torch._device import compute_inputs
+from tpuflow_torch.config import numpy_dtype
 from tpuflow_torch.models.common import run_pyramid
 from tpuflow_torch.ops.brox import SOR_OMEGA, brox_sor_error
 from tpuflow_torch.ops.gradients import _shift_clamp, centered_gradient, dxx, dxy, dyy
@@ -143,7 +144,7 @@ def _sor_solve(du, dv, Au, Av, Du, Dv, D, alpha, psis, colors, tol, size,
         state = torch.stack([du, dv])[None]
         const = torch.stack([Au, Av, Du, Dv, D, *psis])[None]
         if stop == "error":
-            thresh = float(np.float32(tol * tol * size))
+            thresh = float(numpy_dtype(du.dtype)(tol * tol * size))
         elif stop == "fixed":
             thresh = -1.0
         else:
@@ -247,9 +248,10 @@ def brox_spatial(I1, I2, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
     """Multiscale Brox spatial flow (reference brox_optic_flow_spatial,
     src/brox_optic_flow_spatial.cpp:451-549): (H, W) pair -> (u, v).
 
-    Inputs (tensors or arrays) are moved to `device` as float32; the
-    default device is the card, and with no card present the call
-    raises unless device="cpu" is given.
+    Inputs (tensors or arrays) are moved to `device` in the dtype it
+    computes in (`compute_inputs`: float32 on the card, float32 or
+    float64 on the CPU); the default device is the card, and with no
+    card present the call raises unless device="cpu" is given.
 
     stop="error" stops each SOR solve at sqrt(err/size) <= tol (or
     `maxiter` sweeps); stop="fixed" runs `maxiter` sweeps.  The
@@ -264,7 +266,7 @@ def brox_spatial(I1, I2, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
     `with_diag=True` returns (u, v, diags) with diags[s] =
     {"iterations": (outer, inner) int32, "warp_overflow_tiles": 0} per
     scale, finest first."""
-    I1, I2 = float32_inputs(device, I1, I2)
+    I1, I2 = compute_inputs(device, I1, I2)
     warp_mode = resolve_warp_mode(warp_mode, I1.device)
     ny, nx = I1.shape[-2:]
     if clamp_scales:

@@ -40,7 +40,7 @@ import math
 
 import torch
 
-from tpuflow_torch._device import float32_inputs
+from tpuflow_torch._device import compute_inputs
 from tpuflow_torch.models.brox_spatial import (
     EPSILON,
     MAXITER_SOR,
@@ -220,9 +220,10 @@ def brox_temporal(I, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
     brox_optic_flow_temporal, src/brox_optic_flow_temporal.cpp:520-626).
 
     I: (T, H, W) frames with T >= 3 (tensor or array, moved to `device`
-    as float32; the default device is the card, and with no card the
-    call raises unless device="cpu" is given); returns (T-1, H, W) u and
-    v.
+    in the dtype it computes in, `compute_inputs`: float32 on the card,
+    float32 or float64 on the CPU; the default device is the card, and
+    with no card the call raises unless device="cpu" is given); returns
+    (T-1, H, W) u and v.
 
     The volume is normalised to [0, 255] as one (image_normalization_1,
     src/utils.cpp:251-276), then smoothed with sigma 0.8; scales clamp
@@ -237,7 +238,7 @@ def brox_temporal(I, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
     (src/brox_optic_flow_temporal.cpp:592-594) and `Iterations: %d` per
     outer*inner iteration (:459-461).  `with_diag=True` returns (u, v,
     diags), diags[s] = `brox_temporal_scale`'s diag, finest first."""
-    (I,) = float32_inputs(device, I)
+    (I,) = compute_inputs(device, I)
     warp_mode = resolve_warp_mode(warp_mode, I.device)
     frames, ny, nx = I.shape
     if frames <= 2:

@@ -14,7 +14,7 @@ tested against, and `hs_classic(..., fused=False)` runs it.
 
 import torch
 
-from tpuflow_torch._device import float32_inputs
+from tpuflow_torch._device import compute_inputs
 from tpuflow_torch.ops.gradients import _shift_clamp
 from tpuflow_torch.ops.hs_classic import hs_classic_fused
 
@@ -51,11 +51,12 @@ def _bar(u):
 def hs_classic_batched(a, b, niter, alpha, device=None):
     """Batched classic HS: (B, H, W) pairs -> (B, H, W) flows (u, v).
 
-    Inputs (tensors or arrays) are moved to `device` as float32; the
-    default device is the card, and with no card present the call
-    raises unless device="cpu" is given.  No normalisation, as in the
-    reference."""
-    a, b = float32_inputs(device, a, b)
+    Inputs (tensors or arrays) are moved to `device` in the dtype it
+    computes in (`compute_inputs`: float32 on the card, float32 or
+    float64 on the CPU); the default device is the card, and with no
+    card present the call raises unless device="cpu" is given.  No
+    normalisation, as in the reference."""
+    a, b = compute_inputs(device, a, b)
     Ex, Ey, Et = _input_derivatives(a, b)
     return hs_classic_fused(Ex, Ey, Et, alpha, niter)
 
@@ -70,7 +71,7 @@ def hs_classic(a, b, niter, alpha, fused=None, device=None):
     plain version on the CPU); `fused=False` runs the reference-form
     loop (a quotient by alpha^2 + Ex^2 + Ey^2 and `_bar`), on request
     only."""
-    a, b = float32_inputs(device, a, b)
+    a, b = compute_inputs(device, a, b)
     Ex, Ey, Et = _input_derivatives(a, b)
     if fused is None or fused:
         u, v = hs_classic_fused(Ex[None].contiguous(), Ey[None].contiguous(),

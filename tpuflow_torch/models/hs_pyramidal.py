@@ -36,10 +36,10 @@ is tested against.
 import math
 import sys
 
-import numpy as np
 import torch
 
-from tpuflow_torch._device import float32_inputs
+from tpuflow_torch._device import compute_inputs
+from tpuflow_torch.config import numpy_dtype
 from tpuflow_torch.models.common import run_pyramid
 from tpuflow_torch.ops.gradients import _shift_clamp, centered_gradient
 from tpuflow_torch.ops.hs import SOR_OMEGA, hs_sor_error
@@ -102,7 +102,7 @@ def hs_scale(I1, I2, u, v, alpha=DEFAULT_ALPHA, warps=DEFAULT_WARPS,
              with_diag=False, warp_mode="exact", dmax=8):
     """Single-scale warping Horn-Schunck (reference
     horn_schunck_optical_flow, src/horn_schunck_pyramidal.cpp:78-249) on
-    float32 (ny, nx) images.  Every warp runs (no early exit).
+    (ny, nx) images.  Every warp runs (no early exit).
 
     `with_diag=True` also returns {"iterations": (warps,) int32,
     "error": (warps,)}: each warp's sweep count and sqrt(err/size) of
@@ -112,7 +112,8 @@ def hs_scale(I1, I2, u, v, alpha=DEFAULT_ALPHA, warps=DEFAULT_WARPS,
         raise ValueError(f"unknown stop mode {stop!r}")
     size = I1.numel()
     alpha2 = alpha * alpha
-    thresh = (float(np.float32(tol * tol) * np.float32(size))
+    f = numpy_dtype(I1.dtype)
+    thresh = (float(f(tol * tol) * f(size))
               if stop == "error" else -1.0)
     planes = torch.stack([I2, *centered_gradient(I2)])
     state = torch.stack([u, v])[None].contiguous()
@@ -141,9 +142,10 @@ def hs_pyramidal(I1, I2, alpha=DEFAULT_ALPHA, nscales=DEFAULT_NSCALES,
     """Multiscale warping Horn-Schunck (reference horn_schunck_pyramidal,
     src/horn_schunck_pyramidal.cpp:258-370): (H, W) pair -> (u, v).
 
-    Inputs (tensors or arrays) are moved to `device` as float32; the
-    default device is the card, and with no card present the call
-    raises unless device="cpu" is given.
+    Inputs (tensors or arrays) are moved to `device` in the dtype it
+    computes in (`compute_inputs`: float32 on the card, float32 or
+    float64 on the CPU); the default device is the card, and with no
+    card present the call raises unless device="cpu" is given.
 
     `verbose` prints the reference binary's stderr lines: the multiscale
     header (src/horn_schunck_pyramidal.cpp:274-277), `Scale: %d %dx%d`
@@ -151,7 +153,7 @@ def hs_pyramidal(I1, I2, alpha=DEFAULT_ALPHA, nscales=DEFAULT_NSCALES,
     (:118-120, :233-235).  `with_diag=True` returns (u, v, diags) with
     diags[s] the per-warp dict of `hs_scale` at scale s (finest first).
     `warp_mode` as in `tvl1_multiscale`."""
-    I1, I2 = float32_inputs(device, I1, I2)
+    I1, I2 = compute_inputs(device, I1, I2)
     warp_mode = resolve_warp_mode(warp_mode, I1.device)
     ny, nx = I1.shape[-2:]
     if clamp_scales:

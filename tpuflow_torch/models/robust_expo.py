@@ -38,7 +38,7 @@ import math
 
 import torch
 
-from tpuflow_torch._device import float32_inputs
+from tpuflow_torch._device import compute_inputs
 from tpuflow_torch.models.brox_spatial import (MAXITER_SOR, _red_black,
                                                _sor_solve, print_iterations,
                                                psi_divergence,
@@ -215,7 +215,9 @@ def robust_expo(I1, I2, method_type=DEFAULT_METHOD, alpha=DEFAULT_ALPHA,
     multiscale overload, src/robust_expo_methods.cpp:462-566).
 
     I1/I2: (H, W) grayscale or (C, H, W) channel planes, tensors or
-    arrays, moved to `device` as float32 (default: the card, and with no
+    arrays, moved to `device` in the dtype it computes in
+    (`compute_inputs`: float32 on the card, float32 or float64 on the
+    CPU; default: the card, and with no
     card present the call raises unless device="cpu" is given).
 
     `level_callback(scale, {"u1", "u2"})` runs after each level;
@@ -230,7 +232,7 @@ def robust_expo(I1, I2, method_type=DEFAULT_METHOD, alpha=DEFAULT_ALPHA,
     `with_diag=True` returns (u, v, diags), diags[s] = {"iterations":
     (outer, inner), "error": (outer, inner), "warp_overflow_tiles": 0},
     finest first."""
-    I1, I2 = float32_inputs(device, I1, I2)
+    I1, I2 = compute_inputs(device, I1, I2)
     warp_mode = resolve_warp_mode(warp_mode, I1.device)
     if I1.ndim == 2:
         I1 = I1[None]

@@ -43,7 +43,7 @@ import sys
 
 import torch
 
-from tpuflow_torch._device import float32_inputs
+from tpuflow_torch._device import compute_inputs
 from tpuflow_torch.models.common import run_pyramid_state, upsample_flow
 from tpuflow_torch.models.tvl1occ_rof import rof_box_cell_centered
 from tpuflow_torch.ops.gradients import centered_gradient, divergence, forward_gradient
@@ -261,7 +261,9 @@ def tvl1occflow(Im1, I0, I1, filt_i0=None, lam=DEFAULT_LAMBDA,
     """Multiscale joint flow and occlusion estimation
     (Dual_TVL1_optic_flow_multiscale, src/tvl1occflow.cpp:335-481).
 
-    Inputs (H, W), tensors or arrays, are moved to `device` as float32;
+    Inputs (H, W), tensors or arrays, are moved to `device` in the dtype
+    it computes in (`compute_inputs`: float32 on the card, float32 or
+    float64 on the CPU);
     the default device is the card, and with no card the call raises
     unless device="cpu" is given.  Returns (u1, u2, chi) at the finest
     scale, chi thresholded at 0.75 into {0, 1}.  `filt_i0` defaults to
@@ -278,7 +280,7 @@ def tvl1occflow(Im1, I0, I1, filt_i0=None, lam=DEFAULT_LAMBDA,
     = `tvl1occ_scale`'s diag, finest first."""
     if filt_i0 is None:
         filt_i0 = I0
-    Im1, I0, I1, filt_i0 = float32_inputs(device, Im1, I0, I1, filt_i0)
+    Im1, I0, I1, filt_i0 = compute_inputs(device, Im1, I0, I1, filt_i0)
     warp_mode = resolve_warp_mode(warp_mode, I0.device)
     ny, nx = I0.shape[-2:]
     if clamp_scales:

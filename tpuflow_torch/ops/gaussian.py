@@ -13,6 +13,10 @@ Replicates reference src/operators.cpp:506-624:
 
 Each axis is a shift-and-add over the padded rows: half-widths are at
 most ~13 taps, and the sum keeps the reference's order of terms.
+
+`sgauss_kernel` and `sepconvol` are the reference's other Gaussian
+(me_sgauss, me_sepconvol, src/utils.cpp:15-127), with mirror-no-edge
+("symmetric") boundaries.
 """
 
 import numpy as np
@@ -74,3 +78,50 @@ def gaussian(I, sigma, bc="reflecting", window=DEFAULT_WINDOW):
         return I * weights[0]
     out = _conv_axis(I, weights, size, -1, bc)
     return _conv_axis(out, weights, size, -2, bc)
+
+
+def sgauss_kernel(std, n, dtype=np.float64):
+    """Symmetric n-tap Gaussian kernel (reference me_sgauss,
+    src/utils.cpp:15-45): sampled at i - (n-1)/2, unit mass."""
+    if n == 1:
+        return np.ones(1, dtype=dtype)
+    i = np.arange(n, dtype=np.float64)
+    v = (i - 0.5 * (n - 1)) / std
+    out = np.exp(-0.5 * v * v)
+    return (out / out.sum()).astype(dtype)
+
+
+def _symmetric_pad(a, before, after, dim):
+    """numpy's "symmetric" pad (mirror with the edge) of `dim`; pads
+    wider than the axis reflect again, as numpy's do."""
+    while before > 0 or after > 0:
+        n = a.shape[dim]
+        b, e = min(before, n), min(after, n)
+        parts = [torch.flip(a.narrow(dim, 0, b), (dim,)), a,
+                 torch.flip(a.narrow(dim, n - e, e), (dim,))]
+        a = torch.cat(parts, dim=dim)
+        before, after = before - b, after - e
+    return a
+
+
+def sepconvol(I, filter_x, filter_y):
+    """Separable convolution with mirror-no-edge boundaries, x then y
+    (reference me_sepconvol, src/utils.cpp:47-127): a sample at s
+    outside [0, n-1] folds as s < 0 -> -s-1 and s > n-1 -> 2n-s-1, i.e.
+    numpy's "symmetric" padding."""
+    out = I
+    for f, dim in ((filter_x, -1), (filter_y, -2)):
+        f = torch.as_tensor(np.asarray(f, dtype=np.float64),
+                            dtype=I.dtype).tolist()
+        size = len(f)
+        org = (size - 1) // 2
+        n = out.shape[dim]
+        # out[x] = sum_i f[i] * in[x - (i - org)]: pad size-1-org before
+        # and org after
+        p = _symmetric_pad(out, size - 1 - org, org, dim)
+        acc = None
+        for i in range(size):
+            term = f[i] * p.narrow(dim, size - 1 - i, n)
+            acc = term if acc is None else acc + term
+        out = acc
+    return out

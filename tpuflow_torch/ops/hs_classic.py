@@ -26,6 +26,7 @@ import ctypes
 import torch
 
 from tpuflow_torch import _build
+from tpuflow_torch._device import check_dtype
 from tpuflow_torch.ops.hs import neighbour_sums
 
 # the kernel's geometry, as csrc/hs_classic.cu states it (checked when
@@ -75,8 +76,7 @@ def _check(Ex, Ey, Et, niter):
     for name, t in (("Ex", Ex), ("Ey", Ey), ("Et", Et)):
         if t.shape != Ex.shape:
             raise ValueError(f"{name} must be {tuple(Ex.shape)}, got {tuple(t.shape)}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        check_dtype(name, t, Ex)
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.device != Ex.device:

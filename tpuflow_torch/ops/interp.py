@@ -13,7 +13,11 @@ results:
     (Neumann BC, src/bicubic_interpolation.cpp:24-39); with
     `border_out=True` such pixels are 0 (src/bicubic_interpolation.cpp:352-374).
 
-`warp_stack` shares the 16 tap indices and weights across the planes.
+`warp_stack` shares the 16 tap indices and weights across the planes;
+`bicubic_at`, `warp` and `warp_planes` are built on it, and its
+`window` serves the tiled lane (tpuflow_torch.parallel.tiled).
+`interpolate_bilinear` and `image_restriction` are the reference's
+bilinear sampler and cell-centred restriction.
 
 `warp_planes_bounded` is the solvers' fast warp, chosen by
 `resolve_warp_mode`: the displacement-bounded warp of K5 on large
@@ -55,9 +59,29 @@ def _taps(raw, n):
     return clamped, out
 
 
-def warp_stack(planes, xx, yy, border_out=True):
-    """Bicubic-sample a (N, H, W) stack at shared coordinates (H, W)."""
-    n_planes, ny, nx = planes.shape
+def bicubic_at(img, xx, yy, border_out=False):
+    """Bicubic sample of `img` (H, W) at coordinates (xx, yy) of any
+    shape (reference bicubic_interpolation_at,
+    src/bicubic_interpolation.cpp:153-245, at every (xx, yy))."""
+    return warp_stack(img[None], xx, yy, border_out)[0]
+
+
+def warp_stack(planes, xx, yy, border_out=False, window=None):
+    """Bicubic-sample a (N, H, W) stack at shared coordinates (xx, yy) of
+    any shape; returns (N,) + xx.shape.
+
+    `window=(origin_y, origin_x, global_ny, global_nx)` is for tiled
+    execution: `planes` then hold only the window that starts at that
+    global origin, while the tap indices, their clamping and the
+    out-of-domain test use the GLOBAL extent.  Taps that fall outside
+    the window clamp to its rim, which is exact wherever the halo covers
+    the displacement (tpuflow_torch.parallel.tiled)."""
+    n_planes, wny, wnx = planes.shape
+    if window is None:
+        oy = ox = 0
+        ny, nx = wny, wnx
+    else:
+        oy, ox, ny, nx = (int(w) for w in window)
     sx = _sign(xx)
     sy = _sign(yy)
     xi = torch.trunc(xx).to(torch.int64)
@@ -68,11 +92,14 @@ def warp_stack(planes, xx, yy, border_out=True):
     out = out_x | out_y
     fx = xx - xs[1].to(xx.dtype)
     fy = yy - ys[1].to(yy.dtype)
-    flat = planes.reshape(n_planes, ny * nx)
+    if window is not None:
+        xs = [(x - ox).clamp(0, wnx - 1) for x in xs]
+        ys = [(y - oy).clamp(0, wny - 1) for y in ys]
+    flat = planes.reshape(n_planes, wny * wnx)
     results = []
     for p in range(n_planes):
         fp = flat[p]
-        cols = [_cubic(*(fp[ys[m] * nx + xs[l]] for m in range(4)), fy)
+        cols = [_cubic(*(fp[ys[m] * wnx + xs[l]] for m in range(4)), fy)
                 for l in range(4)]  # x-offset l: interpolate along y first
         val = _cubic(*cols, fx)
         if border_out:
@@ -81,12 +108,69 @@ def warp_stack(planes, xx, yy, border_out=True):
     return torch.stack(results)
 
 
+def _grid(ny, nx, like):
+    jj = torch.arange(nx, dtype=like.dtype, device=like.device)[None, :]
+    ii = torch.arange(ny, dtype=like.dtype, device=like.device)[:, None]
+    return jj, ii
+
+
+def warp(img, u, v, border_out=True):
+    """Backward-warp one (H, W) image or a (C, H, W) stack by the flow
+    (u, v): out(x) = img(x + u(x)) (reference
+    bicubic_interpolation_warp, src/bicubic_interpolation.cpp:352-374)."""
+    jj, ii = _grid(*img.shape[-2:], img)
+    if img.ndim == 2:
+        return warp_stack(img[None], jj + u, ii + v, border_out)[0]
+    return warp_stack(img, jj + u, ii + v, border_out)
+
+
 def warp_planes(planes, u, v, border_out=True):
     """Warp a (N, H, W) stack by one flow field: out(x) = I(x + u(x))."""
-    ny, nx = planes.shape[-2:]
-    jj = torch.arange(nx, dtype=planes.dtype, device=planes.device)[None, :]
-    ii = torch.arange(ny, dtype=planes.dtype, device=planes.device)[:, None]
+    jj, ii = _grid(*planes.shape[-2:], planes)
     return warp_stack(planes, jj + u, ii + v, border_out)
+
+
+def interpolate_bilinear(img, xx, yy):
+    """Bilinear sample of `img` (..., H, W) at (xx, yy) (reference
+    me_interpolate_bilinear, src/bicubic_interpolation.cpp:407-446).
+
+    Floor anchors with the +1 taps clamped: the reference's
+    exact-integer branches only skip neighbours whose weight is 0, so
+    this gives its values at every in-domain coordinate (the only use,
+    `image_restriction`, stays in the domain)."""
+    ny, nx = img.shape[-2:]
+    lf = torch.floor(xx)
+    kf = torch.floor(yy)
+    a = xx - lf
+    b = yy - kf
+    l = lf.to(torch.int64)
+    k = kf.to(torch.int64)
+    l0, l1 = l.clamp(0, nx - 1), (l + 1).clamp(0, nx - 1)
+    k0, k1 = k.clamp(0, ny - 1), (k + 1).clamp(0, ny - 1)
+    x0 = img[..., k0, l0]
+    x1 = img[..., k0, l1]
+    x2 = img[..., k1, l0]
+    x3 = img[..., k1, l1]
+    return ((1 - b) * ((1 - a) * x0 + a * x1)
+            + b * ((1 - a) * x2 + a * x3))
+
+
+def image_restriction(img, out_size):
+    """Cell-centred bilinear restriction of `img` to `out_size` =
+    (new_nx, new_ny) (reference me_image_restriction,
+    src/bicubic_interpolation.cpp:653-688): output sample (i, j) reads
+    the input at gamma/2 - 0.5 + index*gamma along each axis."""
+    ny, nx = img.shape[-2:]
+    new_nx, new_ny = out_size
+    gx = nx / new_nx
+    gy = ny / new_ny
+    xs = (gx / 2.0 - 0.5) + gx * torch.arange(new_nx, dtype=img.dtype,
+                                              device=img.device)
+    ys = (gy / 2.0 - 0.5) + gy * torch.arange(new_ny, dtype=img.dtype,
+                                              device=img.device)
+    xx = xs[None, :].expand(new_ny, new_nx)
+    yy = ys[:, None].expand(new_ny, new_nx)
+    return interpolate_bilinear(img, xx, yy)
 
 
 def resolve_warp_mode(mode, device):

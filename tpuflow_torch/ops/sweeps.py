@@ -19,6 +19,7 @@ return at once for inactive samples).
 import torch
 
 from tpuflow_torch import _build
+from tpuflow_torch._device import check_dtype
 
 # iterations or sweeps launched between two host reads of `active`
 CHECK_EVERY = 16
@@ -26,7 +27,8 @@ CHECK_EVERY = 16
 
 def check_state_const(state, const, n_state, n_const):
     """Raise unless state is (B, n_state, ny, nx) and const (B, n_const,
-    ny, nx), both float32, contiguous and on one device."""
+    ny, nx), both of one dtype (float32 on the card; float32 or float64
+    on the CPU), contiguous and on one device."""
     if state.ndim != 4 or state.shape[1] != n_state:
         raise ValueError(f"state must be (B, {n_state}, ny, nx), got "
                          f"{tuple(state.shape)}")
@@ -35,8 +37,7 @@ def check_state_const(state, const, n_state, n_const):
         raise ValueError(f"const must be {(B, n_const, ny, nx)}, got "
                          f"{tuple(const.shape)}")
     for name, t in (("state", state), ("const", const)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        check_dtype(name, t, state)
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     if const.device != state.device:

@@ -44,9 +44,12 @@ _SIGNATURES = {
 }
 
 
-def _step(state, iwx, iwy, rho_c, grad, fi, l_t, theta, taut):
+def _step(state, iwx, iwy, rho_c, grad, fi, l_t, theta, taut,
+          divergence=divergence, forward_gradient=forward_gradient):
     """One fixed-point iteration for every sample; returns the new
-    state and the per-sample err."""
+    state and the per-sample err.  The two stencils are parameters so
+    that the tiled lane (tpuflow_torch.parallel.tiled) runs the same
+    arithmetic through its halo-exchanged ones."""
     u1, u2, p11, p12, p21, p22 = state.unbind(1)
     rho = rho_c + iwx * u1 + iwy * u2
     zero = torch.zeros_like(rho)

@@ -73,6 +73,7 @@ import functools
 import torch
 
 from tpuflow_torch import _build
+from tpuflow_torch._device import check_dtype
 
 _SIGNATURES = {
     "warp_const_tvl1": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -214,8 +215,7 @@ def _check(planes, uv, aux, dmax):
     for name, t in (("planes", planes), ("uv", uv), ("aux", aux)):
         if t is None:
             continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        check_dtype(name, t, planes)
         if t.device != planes.device:
             raise ValueError(f"{name} is on {t.device}, planes on {planes.device}")
     if not planes.is_contiguous() or not (aux is None or aux.is_contiguous()):

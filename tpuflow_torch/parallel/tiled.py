@@ -1,0 +1,178 @@
+"""Spatially tiled (halo-exchanged) versions of the core ops and of the
+single-scale TV-L1 solver.
+
+Counterpart of tpuflow/parallel/tiled.py.  Every rank of a mesh with
+dimensions (y_axis, x_axis) calls these on its (..., h, w) tile of a
+global (..., h*Y, w*X) image; a halo exchange (tpuflow_torch.parallel
+.halo) rebuilds the neighbourhood that the full-image op sees, so a
+tiled result equals the full-image op's.  The ops are plain PyTorch, as
+the JAX package's tiled path is plain XLA; no kernel lies on this lane.
+
+Communication: one exchange of width-1 halos per stencil, one of width
+`warp_halo` per warp, and an `all_reduce` of the convergence error per
+inner iteration, summed over all tiles before the stop test so that
+every tile stops together (the reference's global rule,
+src/tvl1flow.cpp:113,150-162).  That test is a host read per inner
+iteration.
+"""
+
+import torch
+import torch.distributed as dist
+
+from tpuflow_torch.config import numpy_dtype
+from tpuflow_torch.ops.gaussian import gaussian, gaussian_kernel_1d
+from tpuflow_torch.ops.gradients import centered_gradient, forward_gradient
+from tpuflow_torch.ops.interp import warp_stack
+from tpuflow_torch.ops.tvl1 import GRAD_IS_ZERO, _step
+from tpuflow_torch.parallel.halo import crop, exchange_2d
+from tpuflow_torch.parallel.mesh import axis_size
+
+
+class TileGeom:
+    """Geometry of a 2-D tiling: the mesh (None: one tile), its
+    dimension names and sizes, and the local tile shape."""
+
+    def __init__(self, mesh, tile_h, tile_w, y_axis="y", x_axis="x"):
+        self.mesh = mesh
+        self.y_axis = y_axis
+        self.x_axis = x_axis
+        self.y_size = axis_size(mesh, y_axis)
+        self.x_size = axis_size(mesh, x_axis)
+        self.h = tile_h
+        self.w = tile_w
+        self.global_ny = self.y_size * tile_h
+        self.global_nx = self.x_size * tile_w
+
+    def pad(self, a, halo, fill="edge"):
+        return exchange_2d(a, halo, self.mesh, self.x_axis, self.y_axis, fill)
+
+    def origins(self):
+        """(origin_y, origin_x) of this rank's tile in global indices."""
+        yi = self.mesh.get_local_rank(self.y_axis) if self.y_size > 1 else 0
+        xi = self.mesh.get_local_rank(self.x_axis) if self.x_size > 1 else 0
+        return yi * self.h, xi * self.w
+
+    def psum(self, value):
+        """`value` (a tensor) summed over all tiles, in place."""
+        for axis, size in ((self.y_axis, self.y_size),
+                           (self.x_axis, self.x_size)):
+            if size > 1:
+                dist.all_reduce(value, group=self.mesh.get_group(axis))
+        return value
+
+    def _index(self, t, dim):
+        """Global row (dim=-2) or column (dim=-1) index of `t`'s cells."""
+        oy, ox = self.origins()
+        n = t.shape[dim]
+        idx = torch.arange(n, device=t.device) + (ox if dim == -1 else oy)
+        return idx if dim == -1 else idx[:, None]
+
+
+def centered_gradient_tiled(I, geom):
+    """Tiled centred gradient: the edge fill gives the one-sided
+    boundary differences."""
+    dx, dy = centered_gradient(geom.pad(I, 1, "edge"))
+    return crop(dx, 1), crop(dy, 1)
+
+
+def forward_gradient_tiled(f, geom):
+    """Tiled forward gradient: the edge fill makes the difference
+    vanish at the global last row and column."""
+    fx, fy = forward_gradient(geom.pad(f, 1, "edge"))
+    return crop(fx, 1), crop(fy, 1)
+
+
+def divergence_tiled(v1, v2, geom):
+    """Tiled backward-difference divergence: v1 with its global last
+    column zeroed (v2: last row), a zero halo on the leading side, and
+    plain backward differences, which is Chambolle's boundary rule."""
+    v1m = torch.where(geom._index(v1, -1) == geom.global_nx - 1,
+                      torch.zeros_like(v1), v1)
+    v2m = torch.where(geom._index(v2, -2) == geom.global_ny - 1,
+                      torch.zeros_like(v2), v2)
+    p1 = geom.pad(v1m, 1, "zero")
+    p2 = geom.pad(v2m, 1, "zero")
+    div_x = p1[..., 1:-1, 1:-1] - p1[..., 1:-1, :-2]
+    div_y = p2[..., 1:-1, 1:-1] - p2[..., :-2, 1:-1]
+    return div_x + div_y
+
+
+def gaussian_tiled(I, sigma, geom, window=5):
+    """Tiled separable Gaussian with the reference's asymmetric
+    reflecting pad at the global boundary (fill "gaussian")."""
+    if sigma <= 0:
+        return I
+    _, size = gaussian_kernel_1d(sigma, window)
+    out = gaussian(geom.pad(I, size, "gaussian"), sigma, bc="reflecting",
+                   window=window)
+    return crop(out, size)
+
+
+def warp_planes_tiled(planes, u, v, geom, halo, border_out=True):
+    """Tiled exact bicubic warp of an (N, h, w) stack by one flow field.
+
+    `halo` must cover the largest displacement plus the bicubic taps
+    (|flow| <= halo - 3): taps beyond it clamp to the padded rim.  The
+    out-of-domain test and the border_out zeros use the global extent
+    (`warp_stack(window=...)`)."""
+    oy, ox = geom.origins()
+    padded = geom.pad(planes, halo, "edge")
+    xx = geom._index(u, -1).to(u.dtype) + u
+    yy = geom._index(v, -2).to(v.dtype) + v
+    return warp_stack(padded, xx, yy, border_out,
+                      window=(oy - halo, ox - halo, geom.global_ny,
+                              geom.global_nx))
+
+
+def tvl1_scale_tiled(I0, I1, u1, u2, geom, warp_halo, tau=0.25, lam=0.15,
+                     theta=0.3, warps=5, epsilon=0.01, max_iterations=300,
+                     with_diag=False):
+    """Tiled single-scale TV-L1 on this rank's (h, w) tiles of
+    normalised, presmoothed images (cf. tpuflow_torch.models.tvl1
+    .tvl1_scale with warp_mode="exact", whose arithmetic and stopping
+    rule it runs: err, the squared flow update summed over the GLOBAL
+    image, against epsilon^2 * size).  Returns this rank's tiles of
+    (u1, u2); with `with_diag=True` also {"iterations": each warp's
+    inner count, "error": each warp's last mean squared update,
+    "host_reads": the stop tests read on the host}."""
+    dtype = I0.dtype
+    h, w = I0.shape[-2:]
+    l_t = lam * theta
+    taut = tau / theta
+    size = geom.global_ny * geom.global_nx
+    f = numpy_dtype(dtype)
+    thresh = float(f(epsilon * epsilon) * f(size))
+
+    def div(a, b):
+        return divergence_tiled(a, b, geom)
+
+    def fgrad(a):
+        return forward_gradient_tiled(a, geom)
+
+    planes = torch.stack([I1, *centered_gradient_tiled(I1, geom)])
+    state = I0.new_zeros((1, 6, h, w))
+    state[0, 0] = u1
+    state[0, 1] = u2
+    ns, errs, reads = [], [], 0
+    for _ in range(warps):
+        u, v = state[0, 0], state[0, 1]
+        I1w, I1wx, I1wy = warp_planes_tiled(planes, u, v, geom, warp_halo)
+        grad = I1wx * I1wx + I1wy * I1wy
+        rho_c = I1w - I1wx * u - I1wy * v - I0
+        fi = -1.0 / torch.clamp(grad, min=GRAD_IS_ZERO)
+        n, err = 0, float("inf")
+        while n < max_iterations:
+            state, e = _step(state, I1wx[None], I1wy[None], rho_c[None],
+                             grad[None], fi[None], l_t, theta, taut,
+                             divergence=div, forward_gradient=fgrad)
+            err = float(geom.psum(e)[0])
+            n += 1
+            reads += 1
+            if not err > thresh:
+                break
+        ns.append(n)
+        errs.append(err / size)
+    u1, u2 = state[0, 0].clone(), state[0, 1].clone()
+    if with_diag:
+        return u1, u2, {"iterations": ns, "error": errs, "host_reads": reads}
+    return u1, u2

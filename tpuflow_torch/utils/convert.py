@@ -16,7 +16,7 @@ other state or weights to carry.
 import numpy as np
 import torch
 
-from tpuflow_torch._device import resolve_device
+from tpuflow_torch._device import compute_inputs, resolve_device
 
 
 def resume_from_jax(scale, state_np, device=None):
@@ -27,11 +27,15 @@ def resume_from_jax(scale, state_np, device=None):
     robust-expo {"u1", "u2"}, Brox temporal {"u1", "u2"} each (T-1, h,
     w), TV-L1 with occlusions {"u1", "u2", "chi"}).
 
-    Flow fields become float32 tensors on `device` (default: the card);
-    integer fields stay integer."""
+    Float fields become tensors on `device` (default: the card) in the
+    dtype the device computes in (`compute_inputs`: float32 on the card,
+    float32 or float64 on the CPU); integer fields stay integer."""
     dev = resolve_device(device)
     state = {}
     for key, value in state_np.items():
-        t = torch.as_tensor(np.array(value), device=dev)  # a copy it owns
-        state[key] = t.to(torch.float32) if t.is_floating_point() else t
+        value = np.array(value)  # a copy the state owns
+        if np.issubdtype(value.dtype, np.floating):
+            (state[key],) = compute_inputs(dev, value)
+        else:
+            state[key] = torch.as_tensor(value, device=dev)
     return int(scale), state
