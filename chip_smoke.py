@@ -86,6 +86,18 @@ then runs these phases, each printing one JSON line:
      counts a thread may take (K5 also at B = 8, Brox temporal's level
      0).  A kernel read below its bound fails the run.
 
+Right after the build, `warmup` of every method; after the main paths,
+the ops that no solver calls against their float64 CPU run, float64
+inputs, and checkpoint and resume; after the engines' timing, the
+`parallel` phase: every lane of tpuflow_torch.parallel at world size 1
+in a one-rank NCCL group (data parallel; the tile lane; `tvl1_spatial`
+on one 1024x436 pair against `tvl1_multiscale(warp_mode="fast")`'s
+per-level route, EPE <= 1e-4 and each warp's iterations within one,
+with K5's and K5p's launches per level and the level-0 warp's K5 and
+K5p outputs against their plain versions; and the frame-sharded Brox
+temporal lane on the 9-frame volume against the single-device solver
+with the exact warp, EPE <= 1e-5 per field and equal sweeps per level).
+
 Then the script's wall time, the {"kernels": [...]} line, the card's
 name and power limit as nvidia-smi gives them, and last {"ok": true, "device": {...}}.  Every
 check raises on failure, so any failed phase exits non-zero.  Without a
@@ -93,6 +105,7 @@ card, or outside a checkout, it exits non-zero and prints no result.
 """
 
 import contextlib
+import importlib
 import io
 import json
 import math
@@ -504,7 +517,7 @@ def brox_system(dev, ny, nx, dmax, batch=1):
     state is the zero increment.  With batch > 1 the samples share the
     system's matrix, sample k's right-hand side (Au, Av) scaled by
     1 / (k + 1), so their solves stop at different sweeps."""
-    import tpuflow_torch.models.brox_spatial as bs
+    bs = importlib.import_module("tpuflow_torch.models.brox_spatial")
     from tpuflow_torch.ops.brox import brox_sor_error_plain
 
     I1, I2, _, u, v = brox_inputs(dev, ny, nx)
@@ -593,8 +606,9 @@ def plain_versions():
     """Run the engines through the kernels' plain versions (on whatever
     device the tensors lie on) inside the block."""
     import tpuflow_torch.models.batch as batch
-    import tpuflow_torch.models.brox_spatial as brox
-    import tpuflow_torch.models.hs_classic as classic
+    # tpuflow_torch.models exports functions of these modules' names
+    brox = importlib.import_module("tpuflow_torch.models.brox_spatial")
+    classic = importlib.import_module("tpuflow_torch.models.hs_classic")
     import tpuflow_torch.ops.interp as interp
     from tpuflow_torch.ops.brox import brox_sor_error_plain
     from tpuflow_torch.ops.hs import hs_sor_error_plain
@@ -828,7 +842,7 @@ def pair_golden_epe(engine, dev, name, key):
 def marking_levels(mark):
     """Call mark(k, None) after the k-th `brox_scale` call (coarsest
     first) inside the block: `brox_spatial` has no level callback."""
-    import tpuflow_torch.models.brox_spatial as bs
+    bs = importlib.import_module("tpuflow_torch.models.brox_spatial")
 
     scale_fn = bs.brox_scale
     calls = []
@@ -1992,6 +2006,147 @@ def checkpoint_check(dev):
     return out
 
 
+# the frame-sharded lane against the single-device solver, both with the
+# exact warp: the same arithmetic at world size 1
+TEMPORAL_LANE_EPE_TOL = 1e-5
+# tvl1_spatial against tvl1_multiscale(warp_mode="fast") on its per-level
+# route (tvl1_scale at every level, K5 / K5p and K2 in float32); the
+# plain call of tvl1_multiscale is the batched engine at B=1, whose warp
+# early exit skips warps that would each move the flow by up to about
+# epsilon = 0.01 px, so it is held only to the repo's fault bound
+SPATIAL_EPE_TOL = 1e-4
+SPATIAL_BATCHED_EPE_TOL = 0.05
+
+
+def temporal_lane(dev, counters):
+    """`brox_temporal_multiscale_sharded` on mesh {"t": 1} on the
+    TEMPORAL_FRAMES-frame 1024x436 volume of the timing phase (12 levels
+    at the reference CLI defaults), against the single-device
+    `brox_temporal(..., warp_mode="exact")`: EPE per field and the SOR
+    sweeps of every level.  The lane warps with the exact gather (no
+    kernel), and its 3-D SOR is plain PyTorch."""
+    from tpuflow_torch import brox_temporal
+    from tpuflow_torch.data import NX, NY, synth_sequence
+    from tpuflow_torch.parallel.mesh import make_mesh
+    from tpuflow_torch.parallel.temporal import (
+        brox_temporal_multiscale_sharded)
+
+    vol = torch.from_numpy(synth_sequence(TEMPORAL_FRAMES, NY, NX,
+                                          seed=SEED0)).to(dev)
+    mesh = make_mesh({"t": 1})
+    (u, v, diags), seconds, launches = counted(
+        counters, lambda: brox_temporal_multiscale_sharded(vol, mesh,
+                                                           with_diag=True))
+    (ur, vr, rdiags), rseconds, _ = counted(
+        counters, lambda: brox_temporal(vol, warp_mode="exact",
+                                        with_diag=True))
+    sweeps = [int(d["iterations"].sum()) for d in diags]
+    out = {"shape": [TEMPORAL_FRAMES, NY, NX], "mesh": {"t": 1},
+           "levels": len(diags), "seconds": seconds,
+           "seconds_per_frame_pair": seconds / (TEMPORAL_FRAMES - 1),
+           "host_reads": sum(d["host_reads"] for d in diags),
+           "sweeps_per_level": sweeps,
+           "single_device_sweeps_per_level": [int(d["iterations"].sum())
+                                              for d in rdiags],
+           "single_device_exact_seconds": rseconds, "launches": launches,
+           "epe_vs_single_device": epe(u, v, ur, vr),
+           "bit_equal_to_single_device": bool(torch.equal(u, ur)
+                                              and torch.equal(v, vr))}
+    same_sweeps = [d["iterations"].tolist() for d in diags] == [
+        d["iterations"].tolist() for d in rdiags]
+    if not (same_sweeps and tuple(u.shape) == (TEMPORAL_FRAMES - 1, NY, NX)
+            and max(out["epe_vs_single_device"]) <= TEMPORAL_LANE_EPE_TOL
+            and bool(torch.isfinite(u).all() and torch.isfinite(v).all())
+            and not any(launches.values())):
+        raise AssertionError(f"temporal lane: {out}")
+    return out
+
+
+def spatial_lane(dev, counters, I0, I1):
+    """`tvl1_spatial` on the mesh `make_spatial_mesh` gives one rank
+    ({"y": 1, "x": 1}: every level tiles) on one 1024x436 timing pair at
+    tvl1flow's defaults, against `tvl1_multiscale(warp_mode="fast",
+    with_diag=True)`, which runs `tvl1_scale` at each level (EPE, and
+    the iterations of every warp within one), and against its plain
+    call, the batched engine at B=1 (EPE); K5 launched on each level of
+    at least 96x96 px and K5p below, once a warp, and nothing else; then
+    the K5 and K5p outputs of its first level-0 warp (P = 3) against
+    their plain versions."""
+    import tpuflow_torch.ops.interp as interp
+    from tpuflow_torch import tvl1_multiscale
+    from tpuflow_torch.ops.interp import K5_MIN_PIXELS
+    from tpuflow_torch.ops.pyramid import clamp_nscales, pyramid_sizes
+    from tpuflow_torch.parallel.spatial import make_spatial_mesh, tvl1_spatial
+
+    a, b = I0[0], I1[0]
+    ny, nx = a.shape
+    sizes = pyramid_sizes(nx, ny, 0.5, clamp_nscales(nx, ny, 0.5, 100))
+    big = sum(w * h >= K5_MIN_PIXELS for w, h in sizes)
+    mesh = make_spatial_mesh()
+    inner, first = interp.warp_planes_uv, []
+
+    def capture(planes, u, v, dmax, shift=False, border_out=True):
+        if not first and planes.shape[-2:] == (ny, nx):
+            first.append((planes.clone(), u.clone(), v.clone(), dmax))
+        return inner(planes, u, v, dmax, shift, border_out)
+
+    with swapped([(interp, "warp_planes_uv", capture)]):
+        (u, v, diags), seconds, launches = counted(
+            counters, lambda: tvl1_spatial(a, b, mesh, with_diag=True))
+    (us, vs), plain_seconds, _ = counted(
+        counters, lambda: tvl1_spatial(a, b, mesh))
+    (ur, vr), rseconds, rlaunches = counted(
+        counters, lambda: tvl1_multiscale(a, b, warp_mode="fast"))
+    ud, vd, rdiags = tvl1_multiscale(a, b, warp_mode="fast", with_diag=True)
+    its = [d["iterations"].tolist() for d in diags]
+    rits = [d["iterations"].tolist() for d in rdiags]
+    planes, wu, wv, dmax = first[0]
+    kernel_checks = {}
+    for name, shift in (("warp_planes_batched", False),
+                        ("warp_planes_shift_batched", True)):
+        got = inner(planes, wu, wv, dmax, shift)
+        ref = _warp_uv_plain(planes, wu, wv, dmax, shift)
+        rel, err = rel_err(got[None], ref[None])
+        kernel_checks[name] = {"shape": list(planes.shape), "dmax": dmax,
+                               "max_abs_err": err, "max_rel_err": rel,
+                               "bit_equal": bool(torch.equal(got, ref))}
+    out = {"shape": [ny, nx], "mesh": dict(zip(mesh.mesh_dim_names,
+                                               mesh.shape)),
+           "levels": len(sizes), "tiled_levels": [d["tiled"] for d in diags],
+           "seconds_with_diag": seconds, "seconds": plain_seconds,
+           "host_reads": sum(d.get("host_reads", 0) for d in diags),
+           "iterations": its, "tvl1_scale_iterations": rits,
+           "batched_route_seconds": rseconds,
+           "batched_route_launches": rlaunches,
+           "launches": launches,
+           "k5_launches_expected": 5 * big,
+           "k5p_launches_expected": 5 * (len(sizes) - big),
+           "epe_vs_tvl1_multiscale_fast": epe(u, v, ud, vd),
+           "epe_vs_batched_route": epe(us, vs, ur, vr),
+           "diag_call_equal_to_plain_call": bool(torch.equal(u, us)
+                                                 and torch.equal(v, vs)),
+           "level0_warp_vs_plain": kernel_checks}
+    within_one = len(its) == len(rits) and all(
+        len(x) == len(y) and all(abs(p - q) <= 1 for p, q in zip(x, y))
+        for x, y in zip(its, rits))
+    others = {k: n for k, n in launches.items()
+              if k not in ("warp_planes_batched", "warp_planes_shift_batched")}
+    k5, k5p = (kernel_checks[k] for k in ("warp_planes_batched",
+                                          "warp_planes_shift_batched"))
+    if not (within_one and all(out["tiled_levels"])
+            and out["epe_vs_tvl1_multiscale_fast"] <= SPATIAL_EPE_TOL
+            and out["epe_vs_batched_route"] <= SPATIAL_BATCHED_EPE_TOL
+            and out["diag_call_equal_to_plain_call"]
+            and launches["warp_planes_batched"] == 5 * big > 0
+            and launches["warp_planes_shift_batched"] == 5 * (len(sizes) - big) > 0
+            and not any(others.values())
+            and k5["max_rel_err"] <= 1e-5 and k5p["bit_equal"]
+            and k5p["max_abs_err"] <= 1e-4
+            and bool(torch.isfinite(u).all() and torch.isfinite(v).all())):
+        raise AssertionError(f"tvl1_spatial: {out}")
+    return out
+
+
 def free_port():
     import socket
 
@@ -2004,9 +2159,11 @@ def parallel_lanes(dev, counters, I0, I1):
     """The lanes of tpuflow_torch.parallel at world size 1: a one-rank
     process group (NCCL on the card; nothing falls back to gloo), the
     data-parallel lane (`dp_shard` and `tvl1_batched` on the pairs I0,
-    I1 over mesh {"batch": 1}, then `dp_efficiency` at n = 1), and the
+    I1 over mesh {"batch": 1}, then `dp_efficiency` at n = 1), the
     tile lane (`tvl1_scale_tiled` on mesh {"y": 1, "x": 1} at the full
-    436x1024 against the port's `tvl1_scale`, which runs K2)."""
+    436x1024 against the port's `tvl1_scale`, which runs K2), the
+    frame-sharded Brox temporal lane (`temporal_lane`) and the tiled
+    multiscale TV-L1 (`spatial_lane`)."""
     import torch.distributed as dist
 
     from tpuflow_torch import tvl1_batched
@@ -2078,10 +2235,12 @@ def parallel_lanes(dev, counters, I0, I1):
                 and out["tiles"]["epe_vs_tvl1_scale"] <= TILE_EPE_TOL
                 and bool(torch.isfinite(ut).all())):
             raise AssertionError(f"tile lane: {out['tiles']}")
+        out["tvl1_spatial"] = spatial_lane(dev, counters, I0, I1)
+        out["temporal"] = temporal_lane(dev, counters)
     finally:
         dist.destroy_process_group()
     out["note"] = ("no multi-GPU exchange ran: the machine has one card, so "
-                   "both lanes ran at world size 1 (halo exchanges took "
+                   "every lane ran at world size 1 (halo exchanges took "
                    "their fill-only path)")
     return out
 

@@ -7,14 +7,17 @@ their JAX counterparts at atol 1e-12 on the same numpy inputs; `warp`
 to the reference goldens as tests/test_ops.py holds the JAX package's;
 the bilinear ops to the reference loops of tests/test_ops.py.  Then the
 public names: every name that `tpuflow` and `tpuflow.{ops,parallel,
-utils}` export is in the matching `tpuflow_torch` package, and every
-public function of each ported module is in the port's module, but
-those listed in NO_COUNTERPART.
+utils,models,io}` export is in the matching `tpuflow_torch` package,
+every public function of each ported module is in the port's module,
+but those listed in NO_COUNTERPART (or TO_PORT), and takes every
+argument of JAX's, but those listed in NO_COUNTERPART_ARGS.  `warmup`
+takes JAX's arguments in JAX's order, its `timeout` a wall budget.
 """
 
 import ast
 import importlib
 import inspect
+import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -35,12 +38,36 @@ NO_COUNTERPART = {
     # shardings of global arrays: the port's ranks hold blocks instead
     # (batch_block, spatial_block, gather_batch, gather_spatial)
     "parallel.mesh": {"batch_sharding", "spatial_sharding"},
+    # a jit of hs_classic: the port compiles no program
+    "models": {"hs_classic_jit"},
 }
+# public functions still to port (ROADMAP.md, queue 1)
+TO_PORT = {"parallel.spatial": {"robust_expo_spatial", "tvl1occflow_spatial"}}
 PORTED_MODULES = ("config", "ops.gradients", "ops.gaussian", "ops.interp",
                   "ops.median", "ops.normalize", "ops.pyramid",
                   "utils.checkpoint", "utils.warmup", "utils.trace",
                   "parallel.mesh", "parallel.distributed", "parallel.halo",
-                  "parallel.tiled")
+                  "parallel.tiled", "parallel.temporal", "parallel.spatial")
+# arguments of ported public functions with no counterpart, and why
+# (ROADMAP.md lists them too)
+NO_COUNTERPART_ARGS = {
+    # each of the port's ranks is a process that holds its block, and its
+    # mesh carries the process groups: the devices and the axis sizes
+    # come from the mesh
+    "parallel.mesh.make_mesh": {"devices"},
+    "parallel.spatial.make_spatial_mesh": {"devices"},
+    "parallel.distributed.dp_efficiency": {"devices"},
+    "parallel.halo.exchange_1d": {"axis_size"},
+    "parallel.halo.exchange_2d": {"x_size", "y_size"},
+    "parallel.temporal.brox_temporal_scale_sharded": {"axis_size"},
+    # JAX's coordinator keywords pass through to jax.distributed
+    "parallel.distributed.initialize": {"kw"},
+    # Pallas's interpret mode, and the TPU warp's residual windows
+    "ops.interp.warp_planes_bounded": {"interpret", "rbud"},
+    # the same inputs under another name: tensors or arrays
+    "config.result_dtype": {"arrays"},
+    "parallel.distributed.dp_shard": {"arrays"},
+}
 
 
 def _t(a):
@@ -207,13 +234,14 @@ def _exported(package):
             if isinstance(node, ast.ImportFrom) for alias in node.names}
 
 
-@pytest.mark.parametrize("package", ["", "ops", "parallel", "utils"])
+@pytest.mark.parametrize("package", ["", "ops", "parallel", "utils",
+                                     "models", "io"])
 def test_package_exports(package):
     jax_pkg = importlib.import_module(".".join(filter(None, ["tpuflow",
                                                              package])))
     port_pkg = importlib.import_module(".".join(filter(None, [
         "tpuflow_torch", package])))
-    names = _exported(jax_pkg)
+    names = _exported(jax_pkg) - NO_COUNTERPART.get(package, set())
     assert names, package
     missing = sorted(n for n in names if not hasattr(port_pkg, n))
     assert missing == [], missing
@@ -227,7 +255,25 @@ def test_ported_module_surface(module):
               and (inspect.isfunction(f) or inspect.isclass(f))
               and f.__module__ == jax_mod.__name__}
     missing = public - set(vars(port_mod)) - NO_COUNTERPART.get(module, set())
-    assert missing == set(), sorted(missing)
+    assert missing == TO_PORT.get(module, set()), sorted(missing)
+
+
+@pytest.mark.parametrize("module", PORTED_MODULES)
+def test_ported_arguments(module):
+    """Every argument of a ported function is an argument of the port's,
+    but those listed in NO_COUNTERPART_ARGS, and the listed ones really
+    are absent."""
+    jax_mod = importlib.import_module(f"tpuflow.{module}")
+    port_mod = importlib.import_module(f"tpuflow_torch.{module}")
+    for name, fn in vars(jax_mod).items():
+        if (name.startswith("_") or not inspect.isfunction(fn)
+                or fn.__module__ != jax_mod.__name__
+                or not hasattr(port_mod, name)):
+            continue
+        want = set(inspect.signature(fn).parameters)
+        have = set(inspect.signature(getattr(port_mod, name)).parameters)
+        listed = NO_COUNTERPART_ARGS.get(f"{module}.{name}", set())
+        assert want - have == listed, (name, sorted(want - have))
 
 
 def test_no_counterpart_names_are_absent():
@@ -245,6 +291,49 @@ def test_warmup_runs_every_method_on_the_cpu():
     assert seconds > 0
     with pytest.raises(ValueError, match="unknown method"):
         tpuflow_torch.warmup([(1, 24, 32)], methods=("tvl2",), device="cpu")
+
+
+def test_warmup_takes_jax_arguments():
+    """JAX's order (geometries, methods, timeout, verbose), the port's
+    `device` after them: a third positional argument is the timeout."""
+    from tpuflow.utils.warmup import warmup as jax_warmup
+
+    jax_args = list(inspect.signature(jax_warmup).parameters)
+    assert list(inspect.signature(tpuflow_torch.warmup).parameters) == (
+        jax_args + ["device"])
+    assert tpuflow_torch.warmup([(1, 24, 32)], ("tvl1",), 5,
+                                device="cpu") > 0
+    assert tpuflow_torch.warmup([(1, 24, 32)], methods=("hs",), timeout=5,
+                                verbose=True, device="cpu") > 0
+
+
+def test_warmup_budget_skips_the_rest_on_stderr(monkeypatch, capsys):
+    """Once the budget is spent no further job starts: each skipped one
+    is reported on stderr, as JAX reports its failed jobs, and the call
+    returns its seconds without raising."""
+    mod = importlib.import_module("tpuflow_torch.utils.warmup")
+    ran = []
+
+    def slow(*job):
+        ran.append(job[:4])
+        time.sleep(0.05)
+
+    monkeypatch.setattr(mod, "_run", slow)
+    seconds = tpuflow_torch.warmup([(1, 24, 32), (2, 16, 16)],
+                                   ("tvl1", "hs"), timeout=0.01,
+                                   device="cpu")
+    assert seconds >= 0.05 and ran == [("tvl1", 1, 24, 32)]
+    err = capsys.readouterr().err.splitlines()
+    assert err == [
+        "warmup: job ('tvl1', 2, 16, 16) skipped: the timeout of 0.01 s "
+        "was spent",
+        "warmup: job ('hs', 1, 24, 32) skipped: the timeout of 0.01 s "
+        "was spent",
+        "warmup: job ('hs', 2, 16, 16) skipped: the timeout of 0.01 s "
+        "was spent",
+        "warmup: 3/4 jobs skipped (timeout 0.01 s)"]
+    assert tpuflow_torch.warmup([(1, 24, 32)], ("tvl1",), 0,
+                                device="cpu") < 0.05 and len(ran) == 1
 
 
 def test_no_silent_cpu_fallback(monkeypatch):

@@ -350,8 +350,9 @@ def test_png_writer_filters_rows_as_libpng(tmp_path):
 def test_png_and_formats_refused(tmp_path):
     arr = np.zeros((4, 5), np.uint8)
     path = tmp_path / "interlaced.png"
-    path.write_bytes(_png_bytes(arr, [0], interlace=1))
-    with pytest.raises(ValueError, match=r"interlaced.*PNG \(\.png\)"):
+    # PNG defines interlace methods 0 (none) and 1 (Adam7) only
+    path.write_bytes(_png_bytes(arr, [0], interlace=2))
+    with pytest.raises(ValueError, match=r"interlace method 2.*PNG \(\.png\)"):
         read_image(str(path))
     with pytest.raises(ValueError, match=r"\.jpg.*PFM \(\.pfm\)"):
         read_image(str(tmp_path / "a.jpg"))

@@ -16,8 +16,10 @@ solvers `tvl1_multiscale`, `hs_pyramidal`, `hs_classic`,
 (tpuflow_torch.ops); image and flow IO (tpuflow_torch.io); the seven
 reference CLIs, run as `python -m tpuflow_torch.cli.<name>`
 (tpuflow_torch.cli); level checkpoints, `warmup` and tracing
-(tpuflow_torch.utils); and the data-parallel and halo-exchange tile
-lanes on `torch.distributed` (tpuflow_torch.parallel).
+(tpuflow_torch.utils); and, on `torch.distributed`
+(tpuflow_torch.parallel), the data-parallel and halo-exchange tile
+lanes, Brox temporal with its frames split over the ranks, and the
+multiscale TV-L1 tiled over a (y, x) mesh (`tvl1_spatial`).
 
 Inputs are computed in float32 on the card and in their own dtype
 (float32 or float64) on the CPU (tpuflow_torch.config).

@@ -12,8 +12,12 @@ Readable formats, chosen by the file's extension (READABLE):
     their integer values), colour types 0 (gray), 2 (RGB), 3 (palette,
     expanded to RGB as imageio does, tRNS ignored), 4 (gray + alpha) and
     6 (RGBA), bit depths 1/2/4 for gray and palette, all five scanline
-    filters.  Interlaced (Adam7) files raise;
-  * binary PGM / PPM (.pgm, .ppm, .pnm: P5, P6), maxval <= 255;
+    filters, plain or interlaced (Adam7);
+  * binary PGM / PPM (.pgm, .ppm, .pnm: P5, P6), 8-bit (maxval <= 255)
+    and 16-bit (maxval up to 65535, big-endian samples returned as
+    their integer values, as the reference's iio reads them; imageio,
+    through PIL, gives the same for 16-bit gray at maxval 65535, and
+    rescales other maxvals and 16-bit colour to 8 bits);
   * PFM (.pfm: Pf gray, PF colour), rows stored bottom-up.
 
 Reading returns float arrays, (H, W) or (H, W, C), to mirror
@@ -32,6 +36,10 @@ PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # colour type -> samples per pixel (PNG spec, IHDR)
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _PNG_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}  # channels -> colour type
+# Adam7's seven passes (PNG spec 8.2): first row, first column, row
+# step, column step
+_ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4),
+          (2, 0, 4, 2), (0, 1, 2, 2), (1, 0, 2, 1))
 
 
 def _unsupported(path, why):
@@ -45,7 +53,7 @@ def read_image(path, gray=True, dtype=np.float64):
     if ext == ".png":
         arr = read_png(path)
     elif ext in (".pgm", ".ppm", ".pnm"):
-        arr = read_pgm(path)
+        arr = _read_pnm(path, wide=True)
     elif ext == ".pfm":
         arr = read_pfm(path)
     else:
@@ -164,6 +172,21 @@ def _filter_rows(rows, bpp):
     return np.concatenate([best[:, None], chosen], axis=1).astype(np.uint8)
 
 
+def _samples(raw, height, width, depth, channels):
+    """Unfiltered scanlines (height, rowbytes) uint8 -> (height, width,
+    channels) samples: 16-bit big-endian as uint16, 8-bit as they are,
+    1/2/4-bit unpacked most significant bits first."""
+    if depth == 16:
+        samples = raw.view(">u2").astype(np.uint16)
+    elif depth == 8:
+        samples = raw
+    else:  # packed gray or palette indices
+        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
+        samples = ((raw[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
+            height, -1)[:, :width]
+    return samples.reshape(height, width, channels)
+
+
 def read_png(path):
     """Read a PNG -> (H, W) or (H, W, C) uint8 / uint16 array (palette
     images expanded to RGB)."""
@@ -182,26 +205,33 @@ def read_png(path):
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
     width, height, depth, ctype, _, _, interlace = header
-    if interlace:
-        raise _unsupported(path, "interlaced (Adam7) PNG is not supported")
+    if interlace not in (0, 1):
+        raise _unsupported(path, f"PNG interlace method {interlace}")
     if ctype not in _PNG_CHANNELS or depth not in (1, 2, 4, 8, 16) or (
             depth < 8 and ctype not in (0, 3)) or (depth == 16 and ctype == 3):
         raise _unsupported(path, f"PNG colour type {ctype} at bit depth {depth}")
     channels = _PNG_CHANNELS[ctype]
     bits = channels * depth
     rowbytes = (width * bits + 7) // 8
-    raw = _unfilter(zlib.decompress(b"".join(idat)), height, rowbytes,
-                    max(1, bits // 8), path)
-    if depth == 16:
-        samples = raw.view(">u2").astype(np.uint16)
-    elif depth == 8:
-        samples = raw
-    else:  # packed gray or palette indices, most significant bits first
-        per_byte = 8 // depth
-        shifts = np.arange(8 - depth, -1, -depth, dtype=np.uint8)
-        samples = ((raw[:, :, None] >> shifts) & ((1 << depth) - 1)).reshape(
-            height, rowbytes * per_byte)[:, :width]
-    arr = samples.reshape(height, width, channels)
+    data = zlib.decompress(b"".join(idat))
+    bpp = max(1, bits // 8)
+    if not interlace:
+        raw = _unfilter(data, height, rowbytes, bpp, path)
+        arr = _samples(raw, height, width, depth, channels)
+    else:
+        # each Adam7 pass is a small image of its own, filtered and
+        # stored after the one before; an empty pass stores nothing
+        arr = np.zeros((height, width, channels),
+                       np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for y0, x0, dy, dx in _ADAM7:
+            ph, pw = -(-(height - y0) // dy), -(-(width - x0) // dx)
+            if ph <= 0 or pw <= 0:
+                continue
+            prow = (pw * bits + 7) // 8
+            raw = _unfilter(data[pos:], ph, prow, bpp, path)
+            pos += ph * (prow + 1)
+            arr[y0::dy, x0::dx] = _samples(raw, ph, pw, depth, channels)
     if ctype == 3:
         if palette is None or int(arr.max(initial=0)) >= len(palette):
             raise ValueError(f"{path}: PNG palette index out of range")
@@ -257,9 +287,9 @@ def write_pgm(path, arr):
         f.write(arr.tobytes())
 
 
-def read_pgm(path, dtype=np.float64):
-    """Read a binary 8-bit PGM (P5) -> (H, W), or PPM (P6) -> (H, W, 3),
-    float array."""
+def _read_pnm(path, wide):
+    """A binary PGM (P5) -> (H, W) or PPM (P6) -> (H, W, 3) array of its
+    samples, uint8 or (maxval > 255, `wide` only) uint16."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] not in (b"P5", b"P6"):
@@ -280,13 +310,26 @@ def read_pgm(path, dtype=np.float64):
         fields.append(int(data[start:pos]))
     pos += 1  # single whitespace after maxval
     w, h, maxval = fields
-    if maxval > 255:
-        raise _unsupported(path, "16-bit PGM/PPM is not supported")
+    if maxval > 255 and not wide:
+        raise _unsupported(path, "16-bit PGM/PPM is not supported by read_pgm "
+                           "(read_image reads it)")
+    if not 0 < maxval < 65536:
+        raise ValueError(f"{path}: PGM/PPM maxval {maxval} is out of range")
     channels = 3 if data[:2] == b"P6" else 1
-    arr = np.frombuffer(data, dtype=np.uint8, count=w * h * channels,
+    sample = np.dtype(">u2" if maxval > 255 else np.uint8)
+    if len(data) - pos < w * h * channels * sample.itemsize:
+        raise ValueError(f"{path}: PGM/PPM data is truncated")
+    arr = np.frombuffer(data, dtype=sample, count=w * h * channels,
                         offset=pos)
     shape = (h, w, 3) if channels == 3 else (h, w)
-    return arr.reshape(shape).astype(dtype)
+    return arr.reshape(shape).astype(sample.newbyteorder("="))
+
+
+def read_pgm(path, dtype=np.float64):
+    """Read a binary 8-bit PGM (P5) -> (H, W), or PPM (P6) -> (H, W, 3),
+    float array.  16-bit files raise, as the JAX package's `read_pgm`
+    does; `read_image` reads them."""
+    return _read_pnm(path, wide=False).astype(dtype)
 
 
 # --------------------------------------------------------------------- PFM

@@ -136,7 +136,8 @@ def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
                     epsilon=DEFAULT_EPSILON, max_iterations=MAX_ITERATIONS,
                     stop="error", clamp_scales=True, level_callback=None,
                     resume=None, verbose=False, with_diag=False,
-                    warp_mode="auto", max_motion=8, device=None):
+                    warp_mode="auto", max_motion=8, device=None,
+                    scale_solver=None):
     """Multiscale TV-L1 (reference Dual_TVL1_optic_flow_multiscale,
     src/tvl1flow.cpp:219-328): (H, W) pair -> (u, v), or (u, v, diags)
     with `with_diag=True`, diags[s] the per-warp dict of `tvl1_scale` at
@@ -160,7 +161,12 @@ def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
     `warp_mode`: "exact" = the full bicubic gather; "fast" = the bounded
     warp with per-level bound max(3, ceil(max_motion * zfactor**s));
     "auto" (default) = fast on the card, exact elsewhere
-    (tpuflow_torch.ops.interp.resolve_warp_mode)."""
+    (tpuflow_torch.ops.interp.resolve_warp_mode).
+
+    `scale_solver` replaces `tvl1_scale` as the per-level solver, called
+    with `tvl1_scale`'s arguments; a call that gives one never takes the
+    batched engine's route (tpuflow_torch.parallel.spatial.tvl1_spatial
+    gives its tiled solver)."""
     I0, I1 = compute_inputs(device, I0, I1)
     resume = _resume_state(resume)
     warp_mode = resolve_warp_mode(warp_mode, I0.device)
@@ -170,7 +176,7 @@ def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
 
     if (warp_mode == "fast" and stop == "error" and not verbose
             and not with_diag and level_callback is None and resume is None
-            and I0.ndim == 2):
+            and I0.ndim == 2 and scale_solver is None):
         # the plain single-pair call (the CLI default): the batched engine
         # at B=1, as tpuflow/models/tvl1.py:201-216 routes it
         from tpuflow_torch.models.batch import tvl1_batched
@@ -184,14 +190,14 @@ def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
 
     diag = with_diag or verbose
     diags = [None] * nscales
+    solver = tvl1_scale if scale_solver is None else scale_solver
 
     def solve(images, state, scale):
         lvl0, lvl1 = images
         dmax = max(3, math.ceil(max_motion * (zfactor ** scale)))
-        u1, u2, *d = tvl1_scale(lvl0, lvl1, state["u1"], state["u2"], tau,
-                                lam, theta, warps, epsilon, max_iterations,
-                                stop, with_diag=diag, warp_mode=warp_mode,
-                                dmax=dmax)
+        u1, u2, *d = solver(lvl0, lvl1, state["u1"], state["u2"], tau, lam,
+                            theta, warps, epsilon, max_iterations, stop,
+                            with_diag=diag, warp_mode=warp_mode, dmax=dmax)
         if diag:
             diags[scale] = d[0]
             if verbose:

@@ -13,7 +13,9 @@ Communication: one exchange of width-1 halos per stencil, one of width
 inner iteration, summed over all tiles before the stop test so that
 every tile stops together (the reference's global rule,
 src/tvl1flow.cpp:113,150-162).  That test is a host read per inner
-iteration.
+iteration.  `tvl1_warps_tiled` is the warp loop with the warp as a
+parameter: the multiscale lane (tpuflow_torch.parallel.spatial) gives
+it the bounded warp of the whole level.
 """
 
 import torch
@@ -124,23 +126,28 @@ def warp_planes_tiled(planes, u, v, geom, halo, border_out=True):
                               geom.global_nx))
 
 
-def tvl1_scale_tiled(I0, I1, u1, u2, geom, warp_halo, tau=0.25, lam=0.15,
-                     theta=0.3, warps=5, epsilon=0.01, max_iterations=300,
-                     with_diag=False):
-    """Tiled single-scale TV-L1 on this rank's (h, w) tiles of
-    normalised, presmoothed images (cf. tpuflow_torch.models.tvl1
-    .tvl1_scale with warp_mode="exact", whose arithmetic and stopping
-    rule it runs: err, the squared flow update summed over the GLOBAL
-    image, against epsilon^2 * size).  Returns this rank's tiles of
-    (u1, u2); with `with_diag=True` also {"iterations": each warp's
-    inner count, "error": each warp's last mean squared update,
-    "host_reads": the stop tests read on the host}."""
-    dtype = I0.dtype
+def tvl1_warps_tiled(I0, u1, u2, geom, warp, tau=0.25, lam=0.15, theta=0.3,
+                     warps=5, epsilon=0.01, max_iterations=300,
+                     stop="error"):
+    """The warps of a tiled single-scale TV-L1 on this rank's (h, w)
+    tiles: `warp(u1, u2)` gives this rank's tiles of (I1w, I1wx, I1wy)
+    warped by the tiles of the flow, each warp's constants follow, and
+    the inner iterations run through the halo-exchanged stencils.
+
+    stop="error" ends a warp's iterations when err, the squared flow
+    update summed over the GLOBAL image, drops to epsilon^2 * size (the
+    rule of tpuflow_torch.models.tvl1.tvl1_scale, read on the host after
+    every iteration); stop="fixed" runs `max_iterations` and reads err
+    once per warp.  Returns this rank's tiles of (u1, u2) and
+    {"iterations": each warp's inner count, "error": each warp's last
+    mean squared update, "host_reads": the err reads made}."""
+    if stop not in ("error", "fixed"):
+        raise ValueError(f"unknown stop mode {stop!r}")
     h, w = I0.shape[-2:]
     l_t = lam * theta
     taut = tau / theta
     size = geom.global_ny * geom.global_nx
-    f = numpy_dtype(dtype)
+    f = numpy_dtype(I0.dtype)
     thresh = float(f(epsilon * epsilon) * f(size))
 
     def div(a, b):
@@ -149,14 +156,13 @@ def tvl1_scale_tiled(I0, I1, u1, u2, geom, warp_halo, tau=0.25, lam=0.15,
     def fgrad(a):
         return forward_gradient_tiled(a, geom)
 
-    planes = torch.stack([I1, *centered_gradient_tiled(I1, geom)])
     state = I0.new_zeros((1, 6, h, w))
     state[0, 0] = u1
     state[0, 1] = u2
     ns, errs, reads = [], [], 0
     for _ in range(warps):
         u, v = state[0, 0], state[0, 1]
-        I1w, I1wx, I1wy = warp_planes_tiled(planes, u, v, geom, warp_halo)
+        I1w, I1wx, I1wy = warp(u, v)
         grad = I1wx * I1wx + I1wy * I1wy
         rho_c = I1w - I1wx * u - I1wy * v - I0
         fi = -1.0 / torch.clamp(grad, min=GRAD_IS_ZERO)
@@ -165,14 +171,34 @@ def tvl1_scale_tiled(I0, I1, u1, u2, geom, warp_halo, tau=0.25, lam=0.15,
             state, e = _step(state, I1wx[None], I1wy[None], rho_c[None],
                              grad[None], fi[None], l_t, theta, taut,
                              divergence=div, forward_gradient=fgrad)
-            err = float(geom.psum(e)[0])
             n += 1
-            reads += 1
-            if not err > thresh:
-                break
+            if stop == "error" or n == max_iterations:
+                err = float(geom.psum(e)[0])
+                reads += 1
+                if stop == "error" and not err > thresh:
+                    break
         ns.append(n)
         errs.append(err / size)
-    u1, u2 = state[0, 0].clone(), state[0, 1].clone()
+    return (state[0, 0].clone(), state[0, 1].clone(),
+            {"iterations": ns, "error": errs, "host_reads": reads})
+
+
+def tvl1_scale_tiled(I0, I1, u1, u2, geom, warp_halo, tau=0.25, lam=0.15,
+                     theta=0.3, warps=5, epsilon=0.01, max_iterations=300,
+                     with_diag=False):
+    """Tiled single-scale TV-L1 on this rank's (h, w) tiles of
+    normalised, presmoothed images (cf. tpuflow_torch.models.tvl1
+    .tvl1_scale with warp_mode="exact", whose arithmetic and stopping
+    rule it runs: err, the squared flow update summed over the GLOBAL
+    image, against epsilon^2 * size).  Each warp is the tiled exact
+    warp (`warp_planes_tiled`) with a halo of `warp_halo`.  Returns
+    this rank's tiles of (u1, u2); with `with_diag=True` also
+    `tvl1_warps_tiled`'s diag."""
+    planes = torch.stack([I1, *centered_gradient_tiled(I1, geom)])
+    u1, u2, diag = tvl1_warps_tiled(
+        I0, u1, u2, geom,
+        lambda u, v: warp_planes_tiled(planes, u, v, geom, warp_halo),
+        tau, lam, theta, warps, epsilon, max_iterations)
     if with_diag:
-        return u1, u2, {"iterations": ns, "error": errs, "host_reads": reads}
+        return u1, u2, diag
     return u1, u2

@@ -10,9 +10,13 @@ launches.  `warmup` therefore runs `_build.build_all()` (one `nvcc` per
 source, all started together) and then one call per (method, geometry)
 in this process, on the card, at the CLI defaults.  A failed build or
 call raises: nothing is printed and skipped, since that would hide a
-failed kernel.
+failed kernel.  `timeout` is a wall budget, as the JAX package's is for
+its subprocesses: a call in progress runs to its end, and once the
+budget is spent the calls not yet started are skipped and reported on
+stderr, as the JAX package reports its failed jobs.
 """
 
+import sys
 import time
 
 import numpy as np
@@ -53,15 +57,18 @@ def _run(method, B, ny, nx, device):
 
 
 def warmup(geometries=((16, 436, 1024),), methods=("tvl1", "hs"),
-           device=None, verbose=False):
+           timeout=600, verbose=False, device=None):
     """Build the kernels and run each of `methods` once per (B, H, W)
     geometry; returns the wall seconds spent.
 
     methods: any of "tvl1" and "hs" (the batched engines, B pairs),
     "occflow", "robust_expo" and "brox_spatial" (one pair or triplet, B
     ignored) and "brox_temporal" (the geometry's B slot is the FRAME
-    count).  `device` defaults to the card; with no card the call
-    raises.  `verbose` prints each call's seconds.
+    count).  `timeout`: the wall seconds after which no further call
+    starts; each skipped (method, B, H, W) job is printed on stderr,
+    then their count, and nothing raises.  `device` defaults to the
+    card; with no card the call raises.  `verbose` prints each call's
+    seconds.
 
         import tpuflow_torch
         tpuflow_torch.warmup([(16, 436, 1024), (1, 436, 1024)])
@@ -73,14 +80,24 @@ def warmup(geometries=((16, 436, 1024),), methods=("tvl1", "hs"),
             raise ValueError(f"unknown method {method!r}; one of {METHODS}")
     if dev.type == "cuda":
         _build.build_all()
-    for method in methods:
-        for B, ny, nx in geometries:
-            t = time.perf_counter()
-            out = _run(method, int(B), int(ny), int(nx), dev)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            if verbose:
-                print(f"warmup: {method} {(B, ny, nx)} "
-                      f"{time.perf_counter() - t:.3f} s", flush=True)
-            del out
+    jobs = [(method, int(B), int(ny), int(nx))
+            for method in methods for B, ny, nx in geometries]
+    skipped = 0
+    for job in jobs:
+        if time.perf_counter() - t0 >= timeout:
+            skipped += 1
+            print(f"warmup: job {job} skipped: the timeout of {timeout} s "
+                  "was spent", file=sys.stderr)
+            continue
+        t = time.perf_counter()
+        out = _run(*job, dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        if verbose:
+            print(f"warmup: {job[0]} {job[1:]} "
+                  f"{time.perf_counter() - t:.3f} s", flush=True)
+        del out
+    if skipped:
+        print(f"warmup: {skipped}/{len(jobs)} jobs skipped (timeout "
+              f"{timeout} s)", file=sys.stderr)
     return time.perf_counter() - t0
