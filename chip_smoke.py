@@ -94,9 +94,20 @@ in a one-rank NCCL group (data parallel; the tile lane; `tvl1_spatial`
 on one 1024x436 pair against `tvl1_multiscale(warp_mode="fast")`'s
 per-level route, EPE <= 1e-4 and each warp's iterations within one,
 with K5's and K5p's launches per level and the level-0 warp's K5 and
-K5p outputs against their plain versions; and the frame-sharded Brox
-temporal lane on the 9-frame volume against the single-device solver
-with the exact warp, EPE <= 1e-5 per field and equal sweeps per level).
+K5p outputs against their plain versions; `robust_expo_spatial` on the
+same pair, method 1 at robust_expo_methods' defaults, against
+`robust_expo(warp_mode="fast")`: EPE <= 1e-4 and each solve's sweeps
+within one, 45 K5, 30 K5p and 75 K7 launches (each solve on the
+gathered level) and no other kernel, the level-0 warp's K5 output
+against its plain version, and a
+method-3 call against the untiled one at the same bounds;
+`tvl1occflow_spatial` on the timing triplet against
+`tvl1occflow(warp_mode="fast")`: EPE <= 1e-4, chi differing on fewer
+than 1% of the pixels, each warp's iterations within one, 20 K5p
+launches without border_out and no other kernel; and the frame-sharded
+Brox temporal lane on the 9-frame volume against the single-device
+solver with the exact warp, EPE <= 1e-5 per field and equal sweeps per
+level).
 
 Then the script's wall time, the {"kernels": [...]} line, the card's
 name and power limit as nvidia-smi gives them, and last {"ok": true, "device": {...}}.  Every
@@ -2013,7 +2024,10 @@ TEMPORAL_LANE_EPE_TOL = 1e-5
 # route (tvl1_scale at every level, K5 / K5p and K2 in float32); the
 # plain call of tvl1_multiscale is the batched engine at B=1, whose warp
 # early exit skips warps that would each move the flow by up to about
-# epsilon = 0.01 px, so it is held only to the repo's fault bound
+# epsilon = 0.01 px, so it is held only to the repo's fault bound;
+# robust_expo_spatial and tvl1occflow_spatial against their untiled
+# solvers with the fast warp at the same bound, the JAX package's own
+# float32 bound for its lanes (tests/test_spatial.py)
 SPATIAL_EPE_TOL = 1e-4
 SPATIAL_BATCHED_EPE_TOL = 0.05
 
@@ -2062,6 +2076,48 @@ def temporal_lane(dev, counters):
     return out
 
 
+@contextlib.contextmanager
+def first_warp(shape, first):
+    """Keep in `first` the (planes, u, v, dmax, shift, border_out) of the
+    first warp of a level of `shape` (ny, nx) inside the block."""
+    import tpuflow_torch.ops.interp as interp
+
+    inner = interp.warp_planes_uv
+
+    def capture(planes, u, v, dmax, shift=False, border_out=True):
+        if not first and tuple(planes.shape[-2:]) == tuple(shape):
+            first.append((planes.clone(), u.clone(), v.clone(), dmax, shift,
+                          border_out))
+        return inner(planes, u, v, dmax, shift, border_out)
+
+    with swapped([(interp, "warp_planes_uv", capture)]):
+        yield
+
+
+def warp_vs_plain(warp, shift, border_out=True):
+    """K5 (shift False) or K5p on a warp `first_warp` kept, against its
+    plain version on the same inputs."""
+    import tpuflow_torch.ops.interp as interp
+
+    planes, u, v, dmax = warp[:4]
+    got = interp.warp_planes_uv(planes, u, v, dmax, shift, border_out)
+    ref = _warp_uv_plain(planes, u, v, dmax, shift, border_out)
+    rel, err = rel_err(got[None], ref[None])
+    return {"shape": list(planes.shape), "dmax": dmax,
+            "border_out": border_out, "max_abs_err": err,
+            "max_rel_err": rel, "bit_equal": bool(torch.equal(got, ref))}
+
+
+def within_one(its, rits):
+    """Whether two per-level lists of counts have the same shape and
+    differ by at most one everywhere."""
+    flat = [np.ravel(x).tolist() for x in its]
+    rflat = [np.ravel(x).tolist() for x in rits]
+    return len(flat) == len(rflat) and all(
+        len(x) == len(y) and all(abs(p - q) <= 1 for p, q in zip(x, y))
+        for x, y in zip(flat, rflat))
+
+
 def spatial_lane(dev, counters, I0, I1):
     """`tvl1_spatial` on the mesh `make_spatial_mesh` gives one rank
     ({"y": 1, "x": 1}: every level tiles) on one 1024x436 timing pair at
@@ -2072,7 +2128,6 @@ def spatial_lane(dev, counters, I0, I1):
     at least 96x96 px and K5p below, once a warp, and nothing else; then
     the K5 and K5p outputs of its first level-0 warp (P = 3) against
     their plain versions."""
-    import tpuflow_torch.ops.interp as interp
     from tpuflow_torch import tvl1_multiscale
     from tpuflow_torch.ops.interp import K5_MIN_PIXELS
     from tpuflow_torch.ops.pyramid import clamp_nscales, pyramid_sizes
@@ -2083,14 +2138,8 @@ def spatial_lane(dev, counters, I0, I1):
     sizes = pyramid_sizes(nx, ny, 0.5, clamp_nscales(nx, ny, 0.5, 100))
     big = sum(w * h >= K5_MIN_PIXELS for w, h in sizes)
     mesh = make_spatial_mesh()
-    inner, first = interp.warp_planes_uv, []
-
-    def capture(planes, u, v, dmax, shift=False, border_out=True):
-        if not first and planes.shape[-2:] == (ny, nx):
-            first.append((planes.clone(), u.clone(), v.clone(), dmax))
-        return inner(planes, u, v, dmax, shift, border_out)
-
-    with swapped([(interp, "warp_planes_uv", capture)]):
+    first = []
+    with first_warp((ny, nx), first):
         (u, v, diags), seconds, launches = counted(
             counters, lambda: tvl1_spatial(a, b, mesh, with_diag=True))
     (us, vs), plain_seconds, _ = counted(
@@ -2100,16 +2149,9 @@ def spatial_lane(dev, counters, I0, I1):
     ud, vd, rdiags = tvl1_multiscale(a, b, warp_mode="fast", with_diag=True)
     its = [d["iterations"].tolist() for d in diags]
     rits = [d["iterations"].tolist() for d in rdiags]
-    planes, wu, wv, dmax = first[0]
-    kernel_checks = {}
-    for name, shift in (("warp_planes_batched", False),
-                        ("warp_planes_shift_batched", True)):
-        got = inner(planes, wu, wv, dmax, shift)
-        ref = _warp_uv_plain(planes, wu, wv, dmax, shift)
-        rel, err = rel_err(got[None], ref[None])
-        kernel_checks[name] = {"shape": list(planes.shape), "dmax": dmax,
-                               "max_abs_err": err, "max_rel_err": rel,
-                               "bit_equal": bool(torch.equal(got, ref))}
+    kernel_checks = {"warp_planes_batched": warp_vs_plain(first[0], False),
+                     "warp_planes_shift_batched": warp_vs_plain(first[0],
+                                                                True)}
     out = {"shape": [ny, nx], "mesh": dict(zip(mesh.mesh_dim_names,
                                                mesh.shape)),
            "levels": len(sizes), "tiled_levels": [d["tiled"] for d in diags],
@@ -2126,14 +2168,11 @@ def spatial_lane(dev, counters, I0, I1):
            "diag_call_equal_to_plain_call": bool(torch.equal(u, us)
                                                  and torch.equal(v, vs)),
            "level0_warp_vs_plain": kernel_checks}
-    within_one = len(its) == len(rits) and all(
-        len(x) == len(y) and all(abs(p - q) <= 1 for p, q in zip(x, y))
-        for x, y in zip(its, rits))
     others = {k: n for k, n in launches.items()
               if k not in ("warp_planes_batched", "warp_planes_shift_batched")}
     k5, k5p = (kernel_checks[k] for k in ("warp_planes_batched",
                                           "warp_planes_shift_batched"))
-    if not (within_one and all(out["tiled_levels"])
+    if not (within_one(its, rits) and all(out["tiled_levels"])
             and out["epe_vs_tvl1_multiscale_fast"] <= SPATIAL_EPE_TOL
             and out["epe_vs_batched_route"] <= SPATIAL_BATCHED_EPE_TOL
             and out["diag_call_equal_to_plain_call"]
@@ -2144,6 +2183,200 @@ def spatial_lane(dev, counters, I0, I1):
             and k5p["max_abs_err"] <= 1e-4
             and bool(torch.isfinite(u).all() and torch.isfinite(v).all())):
         raise AssertionError(f"tvl1_spatial: {out}")
+    return out
+
+
+def robust_expo_lane(dev, counters, I0, I1):
+    """`robust_expo_spatial` on the one-rank mesh (every level tiles) on
+    one 1024x436 timing pair, gray, at robust_expo_methods' defaults
+    (method 1, 5 levels, 15 outer iterations), against
+    `robust_expo(warp_mode="fast", with_diag=True)`: EPE <=
+    SPATIAL_EPE_TOL and the SOR sweeps of every solve within one; each
+    level's warps recorded and held to what its size gives (15 K5
+    launches on levels of at least 96x96 px, 15 K5p below, P = 6,
+    border_out), one K7 launch a solve (the solve runs on the gathered
+    level, 75 in all) and no other kernel launched; the first level-0
+    warp's K5 output against its plain version (rel <= 1e-5); then one
+    method-3 (DF-AUTO) call held the same way.  Seconds per call beside
+    the untiled calls', levels tiled."""
+    from tpuflow_torch import robust_expo
+    from tpuflow_torch.models.robust_expo import DEFAULT_INNER, DEFAULT_OUTER
+    from tpuflow_torch.ops.interp import K5_MIN_PIXELS
+    from tpuflow_torch.ops.warp import (warp_planes_batched,
+                                        warp_planes_shift_batched)
+    from tpuflow_torch.parallel.spatial import (make_spatial_mesh,
+                                                robust_expo_spatial)
+
+    a, b = I0[0], I1[0]
+    ny, nx = a.shape
+    mesh = make_spatial_mesh()
+    levels = brox_levels()
+    big = sum(lnx * lny >= K5_MIN_PIXELS for lnx, lny in levels)
+    solves = DEFAULT_OUTER * DEFAULT_INNER * len(levels)
+
+    def held(method, u, v, diags):
+        """The checks of one tiled call against the untiled solver."""
+        (ud, vd, rdiags), rseconds, rlaunches = counted(
+            counters, lambda: robust_expo(a, b, method_type=method,
+                                          warp_mode="fast", with_diag=True))
+        its = [d["iterations"].tolist() for d in diags]
+        rits = [d["iterations"].tolist() for d in rdiags]
+        diffs = [abs(p - q) for x, y in zip(its, rits)
+                 for p, q in zip(np.ravel(x), np.ravel(y))]
+        return {"tiled_levels": [d["tiled"] for d in diags],
+                "untiled_seconds_with_diag": rseconds,
+                "untiled_launches": rlaunches,
+                "sweeps": sum(int(d["iterations"].sum()) for d in diags),
+                "sweeps_per_level": [int(d["iterations"].sum())
+                                     for d in diags],
+                "untiled_sweeps_per_level": [int(d["iterations"].sum())
+                                             for d in rdiags],
+                "sweeps_max_diff": int(max(diffs)),
+                "sweeps_within_one": within_one(its, rits),
+                "epe_vs_robust_expo_fast": epe(u, v, ud, vd),
+                "equal_to_robust_expo_fast": bool(torch.equal(u, ud)
+                                                  and torch.equal(v, vd)),
+                "finite": bool(torch.isfinite(u).all()
+                               and torch.isfinite(v).all())}
+
+    calls, marks, first = [], [], []
+
+    def run():
+        return robust_expo_spatial(a, b, mesh, with_diag=True,
+                                   level_callback=lambda s, _:
+                                   marks.append((s, len(calls))))
+
+    with recording_warps(calls), first_warp((ny, nx), first):
+        (u, v, diags), seconds, launches = counted(counters, run)
+    groups = {k.__name__: dict(k.group_launches)
+              for k in (warp_planes_batched, warp_planes_shift_batched)}
+    (us, vs), plain_seconds, _ = counted(
+        counters, lambda: robust_expo_spatial(a, b, mesh))
+    _, plain_rseconds, _ = counted(counters, lambda: robust_expo(a, b))
+
+    def expect(s, lnx, lny):
+        kernel = "K5" if lnx * lny >= K5_MIN_PIXELS else "K5p"
+        return [(kernel, True, 1, 6, lny, lnx, brox_dmax(s))] * DEFAULT_OUTER
+
+    per_level, want_groups, wrong = level_warps(calls, marks, levels, expect)
+    out = {"engine": "robust_expo_spatial", "shape": [ny, nx],
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "levels": len(diags), "seconds_with_diag": seconds,
+           "seconds": plain_seconds, "untiled_seconds": plain_rseconds,
+           **held(1, u, v, diags),
+           "launches": launches, "warp_group_launches": groups,
+           "per_level": per_level,
+           "diag_call_equal_to_plain_call": bool(torch.equal(u, us)
+                                                 and torch.equal(v, vs)),
+           "level0_warp_vs_plain": warp_vs_plain(first[0], False)}
+    (u3, v3, d3), seconds3, launches3 = counted(
+        counters, lambda: robust_expo_spatial(a, b, mesh, method_type=3,
+                                              with_diag=True))
+    out["method3"] = {"seconds_with_diag": seconds3, "launches": launches3,
+                      **held(3, u3, v3, d3)}
+    # K7 launches once a solve, beside the warps that check counts
+    check_sequence_launches(out, {k: n for k, n in launches.items()
+                                  if k != "brox_sor_error"},
+                            groups, want_groups, wrong)
+    for o in (out, out["method3"]):
+        others = {k: n for k, n in o["launches"].items()
+                  if n and k not in ("warp_planes_batched",
+                                     "warp_planes_shift_batched",
+                                     "brox_sor_error")}
+        if not (all(o["tiled_levels"]) and o["finite"]
+                and o["sweeps_within_one"]
+                and o["epe_vs_robust_expo_fast"] <= SPATIAL_EPE_TOL
+                and o["launches"]["warp_planes_batched"]
+                == DEFAULT_OUTER * big > 0
+                and o["launches"]["warp_planes_shift_batched"]
+                == DEFAULT_OUTER * (len(levels) - big) > 0
+                and o["launches"]["brox_sor_error"] == solves
+                and not others):
+            raise AssertionError(f"robust_expo_spatial: {out}")
+    if not (out["diag_call_equal_to_plain_call"]
+            and out["level0_warp_vs_plain"]["max_rel_err"] <= 1e-5):
+        raise AssertionError(f"robust_expo_spatial: {out}")
+    return out
+
+
+def occ_lane(dev, counters):
+    """`tvl1occflow_spatial` on the one-rank mesh (every level tiles) on
+    the timing phase's triplet (`occ_triplet`) at the reference CLI
+    defaults (5 levels, 2 warps), against `tvl1occflow(warp_mode="fast",
+    with_diag=True)`: the JAX package's float32 bounds
+    (tests/test_spatial.py: EPE <= 1e-4, chi differing on fewer than 1%
+    of the pixels) and the iterations of every warp within one; each
+    level's warps recorded and held to what its size gives (two K5p
+    launches a warp without border_out, P = 3: 20 in all) and no other
+    kernel launched (the ROF, median and chi steps are plain PyTorch);
+    the first level-0 warp's K5p output against its plain version.
+    Seconds per call beside the untiled calls', host reads (one an
+    iteration), levels tiled."""
+    from tpuflow_torch import tvl1occflow
+    from tpuflow_torch.data import NX, NY
+    from tpuflow_torch.models.tvl1occflow import DEFAULT_WARPS
+    from tpuflow_torch.ops.warp import (warp_planes_batched,
+                                        warp_planes_shift_batched)
+    from tpuflow_torch.parallel.spatial import (make_spatial_mesh,
+                                                tvl1occflow_spatial)
+
+    triplet = occ_triplet(dev)
+    mesh = make_spatial_mesh()
+    calls, marks, first = [], [], []
+
+    def run():
+        return tvl1occflow_spatial(*triplet, mesh=mesh, with_diag=True,
+                                   level_callback=lambda s, _:
+                                   marks.append((s, len(calls))))
+
+    with recording_warps(calls), first_warp((NY, NX), first):
+        (u1, u2, chi, diags), seconds, launches = counted(counters, run)
+    groups = {k.__name__: dict(k.group_launches)
+              for k in (warp_planes_batched, warp_planes_shift_batched)}
+    (p1, p2, pchi), plain_seconds, _ = counted(
+        counters, lambda: tvl1occflow_spatial(*triplet, mesh=mesh))
+    (r1, r2, rchi, rdiags), rseconds, rlaunches = counted(
+        counters, lambda: tvl1occflow(*triplet, warp_mode="fast",
+                                      with_diag=True))
+    _, plain_rseconds, _ = counted(counters, lambda: tvl1occflow(*triplet))
+
+    def expect(s, nx, ny):
+        return [("K5p", False, 1, 3, ny, nx,
+                 brox_dmax(s, OCC_ZFACTOR))] * (2 * DEFAULT_WARPS)
+
+    per_level, want_groups, wrong = level_warps(
+        calls, marks, brox_levels(OCC_ZFACTOR, 100), expect)
+    its = [d["iterations"].tolist() for d in diags]
+    rits = [d["iterations"].tolist() for d in rdiags]
+    k5p = warp_vs_plain(first[0], True, border_out=False)
+    out = {"engine": "tvl1occflow_spatial", "shape": [3, NY, NX],
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+           "levels": len(diags), "tiled_levels": [d["tiled"] for d in diags],
+           "seconds_with_diag": seconds, "seconds": plain_seconds,
+           "untiled_seconds_with_diag": rseconds,
+           "untiled_seconds": plain_rseconds,
+           "host_reads": sum(d["host_reads"] for d in diags),
+           "iterations": its, "untiled_iterations": rits,
+           "launches": launches, "warp_group_launches": groups,
+           "untiled_launches": rlaunches, "per_level": per_level,
+           "epe_vs_tvl1occflow_fast": epe(u1, u2, r1, r2),
+           "chi_differing_share": float((chi != rchi).double().mean()),
+           "occluded_share": float(chi.mean()),
+           "diag_call_equal_to_plain_call": bool(
+               torch.equal(u1, p1) and torch.equal(u2, p2)
+               and torch.equal(chi, pchi)),
+           "level0_warp_vs_plain": k5p,
+           "iterations_within_one": within_one(its, rits)}
+    check_sequence_launches(out, launches, groups, want_groups, wrong)
+    if not (out["iterations_within_one"] and all(out["tiled_levels"])
+            and launches["warp_planes_shift_batched"]
+            == 2 * DEFAULT_WARPS * len(diags) > 0
+            and out["epe_vs_tvl1occflow_fast"] <= SPATIAL_EPE_TOL
+            and out["chi_differing_share"] < 0.01
+            and out["diag_call_equal_to_plain_call"]
+            and k5p["max_abs_err"] <= 1e-4
+            and bool(torch.isfinite(u1).all() and torch.isfinite(u2).all())):
+        raise AssertionError(f"tvl1occflow_spatial: {out}")
     return out
 
 
@@ -2163,7 +2396,8 @@ def parallel_lanes(dev, counters, I0, I1):
     tile lane (`tvl1_scale_tiled` on mesh {"y": 1, "x": 1} at the full
     436x1024 against the port's `tvl1_scale`, which runs K2), the
     frame-sharded Brox temporal lane (`temporal_lane`) and the tiled
-    multiscale TV-L1 (`spatial_lane`)."""
+    multiscale TV-L1 (`spatial_lane`), robust-expo (`robust_expo_lane`)
+    and TV-L1 with occlusions (`occ_lane`)."""
     import torch.distributed as dist
 
     from tpuflow_torch import tvl1_batched
@@ -2236,6 +2470,8 @@ def parallel_lanes(dev, counters, I0, I1):
                 and bool(torch.isfinite(ut).all())):
             raise AssertionError(f"tile lane: {out['tiles']}")
         out["tvl1_spatial"] = spatial_lane(dev, counters, I0, I1)
+        out["robust_expo_spatial"] = robust_expo_lane(dev, counters, I0, I1)
+        out["tvl1occflow_spatial"] = occ_lane(dev, counters)
         out["temporal"] = temporal_lane(dev, counters)
     finally:
         dist.destroy_process_group()

@@ -9,9 +9,10 @@ the bilinear ops to the reference loops of tests/test_ops.py.  Then the
 public names: every name that `tpuflow` and `tpuflow.{ops,parallel,
 utils,models,io}` export is in the matching `tpuflow_torch` package,
 every public function of each ported module is in the port's module,
-but those listed in NO_COUNTERPART (or TO_PORT), and takes every
-argument of JAX's, but those listed in NO_COUNTERPART_ARGS.  `warmup`
-takes JAX's arguments in JAX's order, its `timeout` a wall budget.
+but those listed in NO_COUNTERPART, and takes every argument of JAX's,
+but those listed in NO_COUNTERPART_ARGS.  `warmup` takes JAX's
+arguments in JAX's order, its `timeout` a wall budget.  The solvers'
+`scale_solver` hook left at None is the plain call.
 """
 
 import ast
@@ -41,8 +42,6 @@ NO_COUNTERPART = {
     # a jit of hs_classic: the port compiles no program
     "models": {"hs_classic_jit"},
 }
-# public functions still to port (ROADMAP.md, queue 1)
-TO_PORT = {"parallel.spatial": {"robust_expo_spatial", "tvl1occflow_spatial"}}
 PORTED_MODULES = ("config", "ops.gradients", "ops.gaussian", "ops.interp",
                   "ops.median", "ops.normalize", "ops.pyramid",
                   "utils.checkpoint", "utils.warmup", "utils.trace",
@@ -255,7 +254,7 @@ def test_ported_module_surface(module):
               and (inspect.isfunction(f) or inspect.isclass(f))
               and f.__module__ == jax_mod.__name__}
     missing = public - set(vars(port_mod)) - NO_COUNTERPART.get(module, set())
-    assert missing == TO_PORT.get(module, set()), sorted(missing)
+    assert missing == set(), sorted(missing)
 
 
 @pytest.mark.parametrize("module", PORTED_MODULES)
@@ -347,3 +346,35 @@ def test_no_silent_cpu_fallback(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         initialize("127.0.0.1:1", 2, 0)
     assert initialize() is False  # one process, no coordinator: a no-op
+
+
+@pytest.mark.parametrize("solver", ["robust_expo", "tvl1occflow"])
+def test_scale_solver_none_is_the_plain_call(solver):
+    """`scale_solver=None` and the model's own per-level solver given
+    explicitly both give the plain call's result bit for bit, the given
+    solver called once a level."""
+    mod = importlib.import_module(f"tpuflow_torch.models.{solver}")
+    scale = getattr(mod, {"robust_expo": "robust_expo_scale",
+                          "tvl1occflow": "tvl1occ_scale"}[solver])
+    rng = _rng(10)
+    base = rng.standard_normal((36, 52)).cumsum(0).cumsum(1)
+    frames = [np.roll(base, k, axis=1) for k in (-1, 0, 1)]
+    images = frames[1:] if solver == "robust_expo" else frames
+    levels = []
+
+    def recording(*args, **kw):
+        levels.append(args[0].shape)
+        return scale(*args, **kw)
+
+    fn = getattr(mod, solver)
+    kw = dict(nscales=2, warp_mode="fast", with_diag=True, device="cpu")
+    if solver == "robust_expo":
+        kw["outer_iter"] = 2
+    want = fn(*images, **kw)
+    for given in (None, recording):
+        got = fn(*images, scale_solver=given, **kw)
+        n = len(want) - 1
+        assert all(torch.equal(a, b) for a, b in zip(got[:n], want[:n]))
+        assert [d["iterations"].tolist() for d in got[n]] == [
+            d["iterations"].tolist() for d in want[n]]
+    assert len(levels) == 2

@@ -24,6 +24,7 @@ import time
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
 
 NY, NX = 64, 96
@@ -95,6 +96,10 @@ def _tile_rank(rank, world, url, out_dir, inputs):
     if rank == 0:
         out["ops"] = ops
     torch.save(out, f"{out_dir}/rank{rank}.pt")
+    # leave the group before exiting: a gloo group torn down at exit can
+    # abort the process
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def _dp_step(I0, I1):
@@ -126,6 +131,10 @@ def _dp_rank(rank, world, url, out_dir, I0, I1):
            "scaling": dp_efficiency(_dp_step, _dp_batch, 1, repeats=1,
                                     device="cpu")}
     torch.save(out, f"{out_dir}/rank{rank}.pt")
+    # leave the group before exiting: a gloo group torn down at exit can
+    # abort the process
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def _spawn(fn, world, tmp_path, *args):

@@ -23,6 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
 
 WORLD = 4
@@ -66,6 +67,10 @@ def _rank(rank, world, url, out_dir):
                                     nscales=NSCALES, with_diag=True,
                                     device="cpu")
     torch.save(out, f"{out_dir}/rank{rank}.pt")
+    # leave the group before exiting: a gloo group torn down at exit can
+    # abort the process
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def _jax_references():

@@ -23,6 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 import torch.multiprocessing as mp
 
 WORLD = 4
@@ -78,6 +79,10 @@ def _rank(rank, world, url, out_dir):
         _volume(5, *MULTI_SHAPE), meshes[4], with_diag=True, device="cpu",
         **MULTI)
     torch.save(out, f"{out_dir}/rank{rank}.pt")
+    # leave the group before exiting: a gloo group torn down at exit can
+    # abort the process
+    dist.barrier()
+    dist.destroy_process_group()
 
 
 def _jax_references():

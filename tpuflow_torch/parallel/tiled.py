@@ -1,5 +1,6 @@
-"""Spatially tiled (halo-exchanged) versions of the core ops and of the
-single-scale TV-L1 solver.
+"""Spatially tiled (halo-exchanged) versions of the core ops, of the
+single-scale TV-L1 solver and of the pieces of robust-expo and TV-L1
+with occlusions.
 
 Counterpart of tpuflow/parallel/tiled.py.  Every rank of a mesh with
 dimensions (y_axis, x_axis) calls these on its (..., h, w) tile of a
@@ -16,18 +17,34 @@ src/tvl1flow.cpp:113,150-162).  That test is a host read per inner
 iteration.  `tvl1_warps_tiled` is the warp loop with the warp as a
 parameter: the multiscale lane (tpuflow_torch.parallel.spatial) gives
 it the bounded warp of the whole level.
+
+For robust-expo: the psi divergence coefficients and the psi-weighted
+divergence on a halo of 1 (its SOR solve runs on the gathered level).
+For TV-L1 with occlusions:
+the 3x3 median on a halo of 1 and `rof_box_tiled`, the staggered ROF
+box relaxation on a halo of `ROF_HALO` cells, exchanged after each
+half-sweep.  Each tiled op equals its untiled op bit for bit
+(tests/test_torch_spatial_tiling.py replays them tile by tile).
 """
 
 import torch
 import torch.distributed as dist
 
 from tpuflow_torch.config import numpy_dtype
+from tpuflow_torch.models.brox_spatial import psi_divergence
+from tpuflow_torch.models.tvl1occ_rof import rof_box_cell_centered
 from tpuflow_torch.ops.gaussian import gaussian, gaussian_kernel_1d
 from tpuflow_torch.ops.gradients import centered_gradient, forward_gradient
 from tpuflow_torch.ops.interp import warp_stack
+from tpuflow_torch.ops.median import median_filter
 from tpuflow_torch.ops.tvl1 import GRAD_IS_ZERO, _step
 from tpuflow_torch.parallel.halo import crop, exchange_2d
 from tpuflow_torch.parallel.mesh import axis_size
+
+# the halo of the ROF box relaxation: a cell's update reads the edge
+# duals of the cells two away (sweep_color's shifts of neighbour edges),
+# and the cells one past the tile must update the tile's own edges
+ROF_HALO = 2
 
 
 class TileGeom:
@@ -97,6 +114,59 @@ def divergence_tiled(v1, v2, geom):
     div_x = p1[..., 1:-1, 1:-1] - p1[..., 1:-1, :-2]
     div_y = p2[..., 1:-1, 1:-1] - p2[..., :-2, 1:-1]
     return div_x + div_y
+
+
+def psi_divergence_tiled(psi, geom):
+    """Tiled `psi_divergence`: the half sums on an edge-filled halo of
+    1, psi1..psi4 zeroed at the GLOBAL last row, first row, last column
+    and first column."""
+    rows, cols = geom._index(psi, -2), geom._index(psi, -1)
+    psi1, psi2, psi3, psi4 = (crop(p, 1) for p in
+                              psi_divergence(geom.pad(psi, 1, "edge")))
+    return (torch.where(rows == geom.global_ny - 1, 0.0, psi1),
+            torch.where(rows == 0, 0.0, psi2),
+            torch.where(cols == geom.global_nx - 1, 0.0, psi3),
+            torch.where(cols == 0, 0.0, psi4))
+
+
+def psi_weighted_divergence_tiled(f, psi1, psi2, psi3, psi4, geom):
+    """Tiled `psi_weighted_divergence`: the neighbours from an
+    edge-filled halo of 1, which is the untiled op's clamp at the
+    global rim."""
+    fp = geom.pad(f, 1, "edge")
+    return (psi1 * (fp[..., 2:, 1:-1] - f) + psi2 * (fp[..., :-2, 1:-1] - f)
+            + psi3 * (fp[..., 1:-1, 2:] - f) + psi4 * (fp[..., 1:-1, :-2] - f))
+
+
+def median_filter_tiled(I, geom, wsize=3):
+    """Tiled 3x3 `median_filter`: for wsize 3 the untiled op's border
+    fold (-1 -> 0, n -> n-1) is the edge fill of a halo of 1."""
+    if wsize != 3:
+        raise ValueError(f"median_filter_tiled takes wsize 3, got {wsize}")
+    return crop(median_filter(geom.pad(I, 1, "edge"), wsize), 1)
+
+
+def rof_box_tiled(u, f, p1, p2, g, lam, geom, omega=1.25, n_iter=10):
+    """Tiled `rof_box_cell_centered` on this rank's (h, w) tiles:
+    `rof_box_cell_centered(window=...)` on the tiles padded by ROF_HALO
+    (u, f and g with an edge fill; the duals p1, p2 with a zero fill,
+    since boundary edges stay 0), whose duals are exchanged again after
+    each half-sweep and u after each primal recovery.  ROF_HALO is the
+    least halo that equals the untiled op; returns this rank's tiles of
+    (u, p1, p2)."""
+    oy, ox = geom.origins()
+    halo = ROF_HALO
+
+    def refresh(t, fill):
+        return geom.pad(crop(t, halo), halo, fill)
+
+    up, fp, gp = (geom.pad(t, halo, "edge") for t in (u, f, g))
+    pp = geom.pad(torch.stack([p1, p2]), halo, "zero")
+    out = rof_box_cell_centered(
+        up, fp, pp[0], pp[1], gp, lam, omega, n_iter,
+        window=(oy - halo, ox - halo, geom.global_ny, geom.global_nx),
+        halo=refresh)
+    return tuple(crop(t, halo) for t in out)
 
 
 def gaussian_tiled(I, sigma, geom, window=5):
