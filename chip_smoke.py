@@ -562,6 +562,7 @@ def check_brox_sor(dev, ny, nx, dmax, batch=1):
     state, const, thresh, alpha = brox_system(dev, ny, nx, dmax, batch)
     out = {"shape": list(state.shape), "route": device_route(batch, ny, nx),
            "thresh": thresh}
+    reset()
     got, _, n = brox_sor_error(state.clone(), const, -1.0, 8, alpha)
     ref, _, n_ref = brox_sor_error_plain(state.clone(), const, -1.0, 8, alpha)
     torch.cuda.synchronize()
@@ -588,6 +589,16 @@ def check_brox_sor(dev, ny, nx, dmax, batch=1):
     if not (n.tolist() == [300] * batch and n_ref.tolist() == [300] * batch
             and bool(torch.isfinite(got).all())):
         raise AssertionError(f"brox_sor (300 sweeps, thresh < 0) disagrees: {out}")
+    # route "stream" launches the 8 sweeps, the stop's rounded up to
+    # CHECK_EVERY, and the 300; route "resident" none through the host loop
+    from tpuflow_torch.ops.sweeps import CHECK_EVERY
+
+    out["k7_stream_sweeps"] = since_reset("iters.k7")
+    want = (8 + min(-(-max(out["n"]) // CHECK_EVERY) * CHECK_EVERY, 300) + 300
+            if out["route"] == "stream" else 0)
+    if out["k7_stream_sweeps"] != want:
+        raise AssertionError(f"brox_sor launched {out['k7_stream_sweeps']} "
+                             f"sweeps through the host loop, not {want}: {out}")
     return out
 
 
@@ -642,27 +653,64 @@ def epe(u, v, ru, rv):
     return torch.hypot(u - ru, v - rv).mean(dim=(-2, -1)).tolist()
 
 
-def reset(counters):
-    """Set every launch count to 0 (K7's per-route and K5's and K5p's
-    per-group counts too)."""
-    for c in counters:
-        c.launches = 0
-        for per in (getattr(c, "route_launches", {}),
-                    getattr(c, "group_launches", {})):
-            for key in per:
-                per[key] = 0
+# the counters of tpuflow_torch.utils.trace that count each wrapper's
+# calls that launched its kernel: K1's and K3's launches, K7's per route,
+# K5's and K5p's per group of planes a thread warps
+K7_ROUTES = ("resident", "stream")
+_COUNTED = {"warp_const_batched": ("launches.k1",),
+            "warp_const_hs_batched": ("launches.k3",),
+            "brox_sor_error": tuple(f"calls.brox_sor_error.{r}"
+                                    for r in K7_ROUTES)}
+_since = {}   # the counters at the last `reset`
+
+
+def trace_counters():
+    from tpuflow_torch.utils.trace import counters
+
+    return counters()
+
+
+def reset():
+    """Count launches, routes and groups from now on."""
+    _since.clear()
+    _since.update(trace_counters())
+
+
+def since_reset(name):
+    """Counter `name` of tpuflow_torch.utils.trace since the last `reset`."""
+    return trace_counters().get(name, 0) - _since.get(name, 0)
+
+
+def group_launches(wrapper):
+    """{planes a thread: calls} of K5's or K5p's wrapper since `reset`."""
+    from tpuflow_torch.ops.warp import GROUPS
+
+    return {g: since_reset(f"calls.{wrapper.__name__}.g{g}") for g in GROUPS}
+
+
+def launch_count(wrapper):
+    """Calls of `wrapper` that launched its kernel since `reset`."""
+    name = wrapper.__name__
+    if name in ("warp_planes_batched", "warp_planes_shift_batched"):
+        return sum(group_launches(wrapper).values())
+    return sum(since_reset(k) for k in _COUNTED.get(name, (f"calls.{name}",)))
+
+
+def route_launches():
+    """{route: K7 calls} since `reset`."""
+    return {r: since_reset(f"calls.brox_sor_error.{r}") for r in K7_ROUTES}
 
 
 def counted(counters, fn):
-    """Run fn() with every launch count set to 0 just before it; returns
-    (fn's result, seconds, {wrapper: launches in that run})."""
-    reset(counters)
+    """Run fn() counting from just before it; returns (fn's result,
+    seconds, {wrapper: launches in that run})."""
+    reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = fn()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    return result, seconds, {c.__name__: c.launches for c in counters}
+    return result, seconds, {c.__name__: launch_count(c) for c in counters}
 
 
 def golden_epe(engine, dev, key, **kw):
@@ -685,6 +733,7 @@ def main_path(dev, counters, engine, kernels_used, synth_bound, **kw):
     I0, I1 = pairs(B_CHECK, NY, NX, dev)
     (u, v, *stats), seconds, launches = counted(
         counters, lambda: engine(I0, I1, **kw))
+    reads = [since_reset("host_reads"), since_reset("iters.k2")]
     with plain_versions():
         pu, pv, *_ = engine(I0, I1, **{k: a for k, a in kw.items()
                                        if k != "with_stats"})
@@ -700,6 +749,12 @@ def main_path(dev, counters, engine, kernels_used, synth_bound, **kw):
     if stats:
         out["iterations"] = {str(s): w for s, w in
                              sorted(stats[0]["iterations"].items())}
+        # [counted, implied by the stats]
+        out["host_reads_k2_iters"] = [reads, list(solve_reads(
+            engine, stats[0]["iterations"], NY, NX))]
+        if reads != out["host_reads_k2_iters"][1]:
+            raise AssertionError(f"main path: host reads or K2 iterations "
+                                 f"not those the stats imply: {out}")
     if not all(e <= 0.01 for e in out["epe_kernels_vs_plain"]):
         raise AssertionError(f"main path: kernels vs plain EPE > 0.01: {out}")
     if not all(launches[k.__name__] > 0 for k in kernels_used):
@@ -721,6 +776,33 @@ def sweeps_launched(its, ny, nx, max_iter=300):
     if device_route(1, ny, nx) == "resident":
         return sum(its)
     return sum(min(-(-n // CHECK_EVERY) * CHECK_EVERY, max_iter) for n in its)
+
+
+def solve_reads(engine, its, ny, nx):
+    """(host reads, K2 iterations launched) of one `tvl1_batched` or
+    `hs_pyramidal_batched` call at its defaults with stop="error" and
+    stats `its`: a read a warp (the warp early exit), and where a solve
+    reads its stop every CHECK_EVERY iterations (K2, K4's route "tiles")
+    a read after each chunk but one that reaches the cap."""
+    from tpuflow_torch.ops.hs import device_route
+    from tpuflow_torch.ops.pyramid import pyramid_sizes
+    from tpuflow_torch.ops.sweeps import CHECK_EVERY
+
+    tvl1 = engine.__name__ == "tvl1_batched"
+    cap = 300 if tvl1 else 150
+    sizes = pyramid_sizes(nx, ny, 0.5, len(its))
+    reads = k2 = 0
+    for s, warps in its.items():
+        lnx, lny = sizes[int(s)]
+        chunked = tvl1 or device_route(lny, lnx) == "tiles"
+        for n in warps:
+            reads += 1
+            if chunked:
+                chunks = -(-max(n) // CHECK_EVERY)
+                launched = min(chunks * CHECK_EVERY, cap)
+                reads += chunks - (launched >= cap)
+                k2 += launched if tvl1 else 0
+    return reads, k2
 
 
 def hs_sweeps(its, ny, nx, cap=150):
@@ -783,8 +865,8 @@ def pair_main_path(dev, counters, engine, synth_bound, expect,
         raise AssertionError("main path: flow of the wrong shape or not finite")
     tu, tv = (torch.as_tensor(f, dtype=torch.float32, device=dev)
               for f in synth_flow(NY, NX))
-    routes = dict(brox_sor_error.route_launches)
-    warp_launches = {k.__name__: dict(k.group_launches) for k in warp_groups}
+    routes = route_launches()
+    warp_launches = {k.__name__: group_launches(k) for k in warp_groups}
     its = {str(s): d["iterations"].ravel().tolist() for s, d in enumerate(diags)}
     out = {"engine": engine.__name__, "shape": [NY, NX], "seconds": seconds,
            "launches": launches, "brox_sor_route_launches": routes,
@@ -879,7 +961,7 @@ def pair_timing(engine, I0, I1, counters, groups, levels_via_callback):
     engine(I0, I1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset(counters)
+    reset()
     reps = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -887,8 +969,8 @@ def pair_timing(engine, I0, I1, counters, groups, levels_via_callback):
         torch.cuda.synchronize()
         reps.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
-    per_pair = {c.__name__: c.launches / len(reps) for c in counters}
-    routes = {r: k / len(reps) for r, k in brox_sor_error.route_launches.items()}
+    per_pair = {c.__name__: launch_count(c) / len(reps) for c in counters}
+    routes = {r: k / len(reps) for r, k in route_launches().items()}
     if routes != {"resident": per_pair["brox_sor_error"], "stream": 0}:
         raise AssertionError(f"{engine.__name__}: K7 routes per pair {routes}")
     if levels_via_callback:
@@ -1001,7 +1083,7 @@ def temporal_main_path(dev, counters):
 
     with recording_warps(calls):
         (u, v, diags), seconds, launches = counted(counters, run)
-    groups = {k.__name__: dict(k.group_launches)
+    groups = {k.__name__: group_launches(k)
               for k in (warp_planes_batched, warp_planes_shift_batched)}
     with plain_versions():
         pu, pv = brox_temporal(vol)
@@ -1067,7 +1149,7 @@ def occ_main_path(dev, counters):
 
     with recording_warps(calls):
         (u1, u2, chi, diags), seconds, launches = counted(counters, run)
-    groups = {k.__name__: dict(k.group_launches)
+    groups = {k.__name__: group_launches(k)
               for k in (warp_planes_batched, warp_planes_shift_batched)}
     with plain_versions():
         pu1, pu2, pchi = tvl1occflow(*triplet)
@@ -1109,7 +1191,7 @@ def solver_timing(name, run, counters, groups, reps=2):
     time by kernel group, the busy and idle share)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset(counters)
+    reset()
     times = []
     for _ in range(reps):
         t0 = time.perf_counter()
@@ -1118,7 +1200,7 @@ def solver_timing(name, run, counters, groups, reps=2):
         times.append(time.perf_counter() - t0)
     return {"engine": name, "seconds_per_call": sum(times) / reps,
             "rep_s": times,
-            "launches_per_call": {c.__name__: c.launches / reps
+            "launches_per_call": {c.__name__: launch_count(c) / reps
                                   for c in counters},
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "breakdown": breakdown(run, groups)}
@@ -1454,7 +1536,7 @@ def cli_calls(counters, cli, argv, reps):
 
     (rc, lines), seconds, launches = counted(
         counters, lambda: quiet(lambda: cli.main(argv)))
-    groups = {k.__name__: dict(k.group_launches)
+    groups = {k.__name__: group_launches(k)
               for k in (warp_planes_batched, warp_planes_shift_batched)}
     reps_s = []
     for _ in range(reps):
@@ -1742,7 +1824,7 @@ def engine_timing(engine, I0, I1, counters, groups, pyramid=True, **kw):
         engine(I0, I1, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset(counters)
+    reset()
     reps = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -1750,7 +1832,7 @@ def engine_timing(engine, I0, I1, counters, groups, pyramid=True, **kw):
         torch.cuda.synchronize()
         reps.append(time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated()
-    per_call = {c.__name__: c.launches / len(reps) for c in counters}
+    per_call = {c.__name__: launch_count(c) / len(reps) for c in counters}
     if pyramid:
         where = breakdown(lambda cb: engine(I0, I1, level_callback=cb, **kw),
                           groups)
@@ -2248,7 +2330,7 @@ def robust_expo_lane(dev, counters, I0, I1):
 
     with recording_warps(calls), first_warp((ny, nx), first):
         (u, v, diags), seconds, launches = counted(counters, run)
-    groups = {k.__name__: dict(k.group_launches)
+    groups = {k.__name__: group_launches(k)
               for k in (warp_planes_batched, warp_planes_shift_batched)}
     (us, vs), plain_seconds, _ = counted(
         counters, lambda: robust_expo_spatial(a, b, mesh))
@@ -2331,7 +2413,7 @@ def occ_lane(dev, counters):
 
     with recording_warps(calls), first_warp((NY, NX), first):
         (u1, u2, chi, diags), seconds, launches = counted(counters, run)
-    groups = {k.__name__: dict(k.group_launches)
+    groups = {k.__name__: group_launches(k)
               for k in (warp_planes_batched, warp_planes_shift_batched)}
     (p1, p2, pchi), plain_seconds, _ = counted(
         counters, lambda: tvl1occflow_spatial(*triplet, mesh=mesh))

@@ -47,6 +47,7 @@ from tpuflow_torch.ops.normalize import normalize_pair_batched
 from tpuflow_torch.ops.pyramid import clamp_nscales, zoom_size
 from tpuflow_torch.ops.tvl1 import tvl1_iterate_error
 from tpuflow_torch.ops.warp import warp_const_batched, warp_const_hs_batched
+from tpuflow_torch.utils.trace import count, span, traced
 
 
 def tvl1_iter_schedule(ny, nx):
@@ -92,15 +93,19 @@ def _run_warps(state, caps, thresh, ee, iterations, warp):
     `ee` is the warp-level early exit: when stopping is on (thresh > 0)
     and every sample's inner solve converged within `ee` iterations, the
     remaining warps are skipped (ee <= 0 runs every warp, as the
-    reference does).  Deciding it reads `n` on the host once per warp.
-    If `iterations` is a list, each warp's per-sample counts are
-    appended to it."""
+    reference does).  Deciding it reads `n` on the host once per warp
+    (span `host_read`, counter `host_reads`).  If `iterations` is a
+    list, each warp's per-sample counts are appended to it.  Each warp
+    is a span `warp`."""
     early_exit = thresh > 0 and ee > 0
     for cap in caps:
-        state, n = warp(state, cap)
-        if iterations is None and not early_exit:
-            continue
-        n_host = n.tolist()
+        with span("warp"):
+            state, n = warp(state, cap)
+            if iterations is None and not early_exit:
+                continue
+            with span("host_read"):
+                count("host_reads")
+                n_host = n.tolist()
         if iterations is not None:
             iterations.append(n_host)
         if early_exit and max(n_host, default=0) <= ee:
@@ -164,7 +169,7 @@ def hs_scale_batched(I1, I2, u, v, dmax, alpha, thresh, caps, ee=2,
 
 
 def _batched_pyramid(I0, I1, nscales, zfactor, max_motion, thresh_base,
-                     caps_all, solve_scale, trace_name, level_callback=None,
+                     caps_all, solve_scale, level_callback=None,
                      resume=None, iterations=None):
     """Coarse-to-fine loop of both engines: `solve_scale(l0, l1, u1,
     u2, dmax, thresh, caps, iterations)` -> (u1, u2) solves one level.
@@ -198,7 +203,7 @@ def _batched_pyramid(I0, I1, nscales, zfactor, max_motion, thresh_base,
     state = run_pyramid_state(
         (I0, I1), nscales, zfactor, solve, state_init, presmooth=0.8,
         preprocess=lambda ims: normalize_pair_batched(*ims),
-        level_callback=level_callback, resume=resume, trace_name=trace_name)
+        level_callback=level_callback, resume=resume)
     return state["u1"], state["u2"], state["oflow"]
 
 
@@ -222,6 +227,7 @@ def _mode_scalars(stop, eps, max_inner, warps, nscales, zfactor, ny, nx,
     return -1.0, rows
 
 
+@traced
 def tvl1_batched(I0, I1, tau=0.25, lam=0.15, theta=0.3, nscales=None,
                  zfactor=0.5, iter_schedule=None, max_motion=8,
                  stop="error", warps=5, epsilon=0.01, max_iterations=300,
@@ -275,7 +281,7 @@ def tvl1_batched(I0, I1, tau=0.25, lam=0.15, theta=0.3, nscales=None,
     iterations = {} if with_stats else None
     u1, u2, oflow = _batched_pyramid(
         I0, I1, nscales, zfactor, max_motion, thresh_base, caps_all,
-        solve_scale, "tvl1_batched", level_callback=level_callback,
+        solve_scale, level_callback=level_callback,
         resume=resume, iterations=iterations)
     if with_stats:
         return u1, u2, {"warp_overflow_tiles": oflow,
@@ -283,6 +289,7 @@ def tvl1_batched(I0, I1, tau=0.25, lam=0.15, theta=0.3, nscales=None,
     return u1, u2
 
 
+@traced
 def hs_pyramidal_batched(I1, I2, alpha=DEFAULT_ALPHA, nscales=None,
                          zfactor=DEFAULT_ZFACTOR, warps=DEFAULT_WARPS,
                          tol=DEFAULT_TOL, maxiter=DEFAULT_MAXITER,
@@ -320,7 +327,7 @@ def hs_pyramidal_batched(I1, I2, alpha=DEFAULT_ALPHA, nscales=None,
     iterations = {} if with_stats else None
     u, v, oflow = _batched_pyramid(
         I1, I2, nscales, zfactor, max_motion, thresh_base, caps_all,
-        solve_scale, "hs_batched", level_callback=level_callback,
+        solve_scale, level_callback=level_callback,
         resume=resume, iterations=iterations)
     if with_stats:
         return u, v, {"warp_overflow_tiles": oflow, "iterations": iterations}

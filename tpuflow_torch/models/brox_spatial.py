@@ -54,6 +54,7 @@ from tpuflow_torch.ops.brox import SOR_OMEGA, brox_sor_error
 from tpuflow_torch.ops.gradients import _shift_clamp, centered_gradient, dxx, dxy, dyy
 from tpuflow_torch.ops.interp import resolve_warp_mode, warp_by_mode
 from tpuflow_torch.ops.pyramid import clamp_nscales
+from tpuflow_torch.utils.trace import count, traced
 
 EPSILON = 0.001     # reference src/brox_optic_flow_spatial.cpp:23
 MAXITER_SOR = 300   # :24
@@ -228,6 +229,7 @@ def print_iterations(scale, diag, outer_iter, inner_iter, with_error=False):
     `Scale: %d`, then `Iterations: %d` (with ` Error: %g` for robust-expo)
     per outer * inner iteration."""
     print(f"Scale: {scale}", file=sys.stdout)
+    count("host_reads", 1 + bool(with_error))
     its = diag["iterations"].tolist()
     errs = diag["error"].tolist() if with_error else None
     for o in range(outer_iter):
@@ -238,6 +240,7 @@ def print_iterations(scale, diag, outer_iter, inner_iter, with_error=False):
             print(line, file=sys.stdout)
 
 
+@traced
 def brox_spatial(I1, I2, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
                  nscales=DEFAULT_NSCALES, zfactor=DEFAULT_ZFACTOR,
                  tol=DEFAULT_TOL, inner_iter=DEFAULT_INNER,
@@ -289,8 +292,7 @@ def brox_spatial(I1, I2, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
                 print_iterations(scale, out[2], outer_iter, inner_iter)
         return out[:2]
 
-    u, v, _ = run_pyramid((I1, I2), nscales, zfactor, solve,
-                          trace_name="brox_spatial")
+    u, v, _ = run_pyramid((I1, I2), nscales, zfactor, solve)
     if with_diag:
         return u, v, diags
     return u, v

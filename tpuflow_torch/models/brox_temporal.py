@@ -60,6 +60,7 @@ from tpuflow_torch.ops.gradients import (
 )
 from tpuflow_torch.ops.interp import resolve_warp_mode, warp_by_mode
 from tpuflow_torch.ops.pyramid import clamp_nscales
+from tpuflow_torch.utils.trace import traced
 
 # CLI defaults, reference src/brox_temporal_main.cpp:19-27 (v1 2012
 # defaults: alpha=18 gamma=7)
@@ -247,6 +248,7 @@ def brox_temporal_scale(I, u, v, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
     return u, v
 
 
+@traced
 def brox_temporal(I, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
                   nscales=DEFAULT_NSCALES, zfactor=DEFAULT_ZFACTOR,
                   tol=DEFAULT_TOL, inner_iter=DEFAULT_INNER,
@@ -309,8 +311,7 @@ def brox_temporal(I, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
     state = run_pyramid_state(
         (I,), nscales, zfactor, solve, presmooth=None,
         preprocess=preprocess_volume,
-        state_init=state_init, level_callback=level_callback, resume=resume,
-        trace_name="brox_temporal")
+        state_init=state_init, level_callback=level_callback, resume=resume)
     if with_diag:
         return state["u1"], state["u2"], diags
     return state["u1"], state["u2"]

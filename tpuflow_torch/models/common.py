@@ -18,7 +18,7 @@ import torch
 from tpuflow_torch.ops.gaussian import gaussian
 from tpuflow_torch.ops.normalize import normalize_joint
 from tpuflow_torch.ops.pyramid import pyramid_sizes, zoom_in, zoom_out
-from tpuflow_torch.utils.trace import trace_scope
+from tpuflow_torch.utils.trace import span
 
 PRESMOOTHING_SIGMA = 0.8  # reference src/tvl1flow.cpp:23
 
@@ -66,8 +66,10 @@ def default_upsample_state(state, out_size, zfactor):
 def run_pyramid_state(images, nscales, zfactor, solve_scale, state_init=None,
                       presmooth=PRESMOOTHING_SIGMA, preprocess="normalize",
                       upsample_state=default_upsample_state,
-                      level_callback=None, resume=None, trace_name=None):
-    """Coarse-to-fine driver over a dict flow state.
+                      level_callback=None, resume=None):
+    """Coarse-to-fine driver over a dict flow state, in the spans
+    `prepare` (preprocessing and the pyramid), `level_<s>` (each level's
+    solve) and `upsample` (each move one level up).
 
       preprocess    "normalize" = joint [0,255] (image_normalization_2,
                     reference src/utils.cpp:283-326), None = raw, or a
@@ -81,20 +83,22 @@ def run_pyramid_state(images, nscales, zfactor, solve_scale, state_init=None,
                     already-solved state; floating fields take the
                     images' dtype, integer fields stay integer
     """
-    if callable(preprocess):
-        images = preprocess(images)
-        normalize = False
-    else:
-        normalize = preprocess == "normalize"
-    levels, sizes = build_pyramid(images, nscales, zfactor, presmooth,
-                                  normalize)
+    with span("prepare"):
+        if callable(preprocess):
+            images = preprocess(images)
+            normalize = False
+        else:
+            normalize = preprocess == "normalize"
+        levels, sizes = build_pyramid(images, nscales, zfactor, presmooth,
+                                      normalize)
     dtype = images[0].dtype
     device = images[0].device
     if resume is not None:
         start, state = resume
         state = {k: _on(v, dtype, device) for k, v in state.items()}
         if start > 0:
-            state = upsample_state(state, sizes[start - 1], zfactor)
+            with span("upsample"):
+                state = upsample_state(state, sizes[start - 1], zfactor)
         start -= 1
     else:
         if state_init is None:
@@ -103,18 +107,19 @@ def run_pyramid_state(images, nscales, zfactor, solve_scale, state_init=None,
             state = state_init(sizes[-1], dtype)
         start = nscales - 1
     for s in range(start, -1, -1):
-        with trace_scope(f"{trace_name or 'pyramid'}/level_{s}", device):
+        with span(f"level_{s}"):
             state = solve_scale(levels[s], state, scale=s)
         if level_callback is not None:
             level_callback(s, state)
         if s > 0:
-            state = upsample_state(state, sizes[s - 1], zfactor)
+            with span("upsample"):
+                state = upsample_state(state, sizes[s - 1], zfactor)
     return state
 
 
 def run_pyramid(images, nscales, zfactor, solve_scale,
                 presmooth=PRESMOOTHING_SIGMA, normalize=True,
-                level_callback=None, resume=None, trace_name=None):
+                level_callback=None, resume=None):
     """Build the pyramid and run `solve_scale` coarse -> fine.
 
     (u1, u2)-state wrapper over `run_pyramid_state` for the two-field
@@ -135,7 +140,7 @@ def run_pyramid(images, nscales, zfactor, solve_scale,
     state = run_pyramid_state(
         images, nscales, zfactor, solve, presmooth=presmooth,
         preprocess="normalize" if normalize else None,
-        level_callback=level_callback, resume=resume, trace_name=trace_name)
+        level_callback=level_callback, resume=resume)
     return state["u1"], state["u2"], extras_box[0]
 
 

@@ -45,6 +45,7 @@ from tpuflow_torch.ops.gradients import _shift_clamp, centered_gradient
 from tpuflow_torch.ops.hs import SOR_OMEGA, hs_sor_error
 from tpuflow_torch.ops.interp import resolve_warp_mode, warp_by_mode
 from tpuflow_torch.ops.pyramid import clamp_nscales
+from tpuflow_torch.utils.trace import traced
 
 # CLI defaults, reference src/horn_schunck_pyramidal_main.cpp:24-33
 DEFAULT_ALPHA = 7.0
@@ -134,6 +135,7 @@ def hs_scale(I1, I2, u, v, alpha=DEFAULT_ALPHA, warps=DEFAULT_WARPS,
     return u, v
 
 
+@traced
 def hs_pyramidal(I1, I2, alpha=DEFAULT_ALPHA, nscales=DEFAULT_NSCALES,
                  zfactor=DEFAULT_ZFACTOR, warps=DEFAULT_WARPS,
                  tol=DEFAULT_TOL, maxiter=DEFAULT_MAXITER, stop="error",
@@ -200,8 +202,7 @@ def hs_pyramidal(I1, I2, alpha=DEFAULT_ALPHA, nscales=DEFAULT_NSCALES,
                           file=sys.stderr)
         return u, v
 
-    u, v, _ = run_pyramid((I1, I2), nscales, zfactor, solve,
-                          trace_name="hs_pyramidal")
+    u, v, _ = run_pyramid((I1, I2), nscales, zfactor, solve)
     if with_diag:
         return u, v, diags
     return u, v

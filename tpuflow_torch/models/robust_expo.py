@@ -52,6 +52,7 @@ from tpuflow_torch.ops.gradients import centered_gradient, dxx, dxy, dyy
 from tpuflow_torch.ops.interp import resolve_warp_mode, warp_by_mode
 from tpuflow_torch.ops.normalize import normalize_joint
 from tpuflow_torch.ops.pyramid import clamp_nscales
+from tpuflow_torch.utils.trace import traced
 
 EPSILON = 0.001   # ROBUST_EXPO_EPSILON, src/robust_expo_smoothness.h:16
 XI = 0.05         # src/robust_expo_smoothness.cpp:17
@@ -231,6 +232,7 @@ def _presmooth_reference(im):
     return inter.reshape(ny, nx, nz).permute(2, 0, 1).contiguous()
 
 
+@traced
 def robust_expo(I1, I2, method_type=DEFAULT_METHOD, alpha=DEFAULT_ALPHA,
                 gamma=DEFAULT_GAMMA, lam=DEFAULT_LAMBDA,
                 nscales=DEFAULT_NSCALES, zfactor=DEFAULT_ZFACTOR,
@@ -312,8 +314,7 @@ def robust_expo(I1, I2, method_type=DEFAULT_METHOD, alpha=DEFAULT_ALPHA,
 
     state = run_pyramid_state(
         (I1, I2), nscales, zfactor, solve, presmooth=None,
-        preprocess=preprocess, level_callback=level_callback, resume=resume,
-        trace_name="robust_expo")
+        preprocess=preprocess, level_callback=level_callback, resume=resume)
     if with_diag:
         return state["u1"], state["u2"], diags
     return state["u1"], state["u2"]

@@ -34,6 +34,7 @@ from tpuflow_torch.ops.gradients import (centered_gradient, divergence,
 from tpuflow_torch.ops.interp import resolve_warp_mode, warp_by_mode
 from tpuflow_torch.ops.pyramid import clamp_nscales
 from tpuflow_torch.ops.tvl1 import tvl1_iterate_error
+from tpuflow_torch.utils.trace import count, traced
 
 MAX_ITERATIONS = 300  # reference src/tvl1flow.cpp:22
 GRAD_IS_ZERO = 1e-10  # reference src/tvl1flow.cpp:24
@@ -130,6 +131,7 @@ def _resume_state(resume):
                      "{'u1': ..., 'u2': ...})")
 
 
+@traced
 def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
                     theta=DEFAULT_THETA, nscales=DEFAULT_NSCALES,
                     zfactor=DEFAULT_ZFACTOR, warps=DEFAULT_WARPS,
@@ -203,6 +205,7 @@ def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
             if verbose:
                 lny, lnx = lvl0.shape[-2:]
                 print(f"Scale {scale}: {lnx}x{lny}", file=sys.stderr)
+                count("host_reads", 2)
                 its = d[0]["iterations"].tolist()
                 errs = d[0]["error"].tolist()
                 for w in range(warps):
@@ -211,8 +214,7 @@ def tvl1_multiscale(I0, I1, tau=DEFAULT_TAU, lam=DEFAULT_LAMBDA,
         return {"u1": u1, "u2": u2}
 
     state = run_pyramid_state((I0, I1), nscales, zfactor, solve,
-                              level_callback=level_callback, resume=resume,
-                              trace_name="tvl1")
+                              level_callback=level_callback, resume=resume)
     if with_diag:
         return state["u1"], state["u2"], diags
     return state["u1"], state["u2"]

@@ -53,6 +53,7 @@ from tpuflow_torch.ops.gradients import centered_gradient, divergence, forward_g
 from tpuflow_torch.ops.interp import resolve_warp_mode, warp_by_mode
 from tpuflow_torch.ops.median import median_filter
 from tpuflow_torch.ops.pyramid import clamp_nscales, zoom_in
+from tpuflow_torch.utils.trace import traced
 
 # src/tvl1occflow_constants.h
 DEFAULT_LAMBDA = 0.15
@@ -278,6 +279,7 @@ def tvl1occ_scale(Im1, I0, I1, filt_i0, u1, u2, chi, lam=DEFAULT_LAMBDA,
     return u1, u2, chi
 
 
+@traced
 def tvl1occflow(Im1, I0, I1, filt_i0=None, lam=DEFAULT_LAMBDA,
                 alpha=DEFAULT_ALPHA, beta=DEFAULT_BETA, theta=DEFAULT_THETA,
                 nscales=DEFAULT_NSCALES, zfactor=DEFAULT_ZFACTOR,
@@ -353,7 +355,7 @@ def tvl1occflow(Im1, I0, I1, filt_i0=None, lam=DEFAULT_LAMBDA,
         (Im1, I0, I1, filt_i0), nscales, zfactor, solve,
         presmooth=PRESMOOTHING_SIGMA, preprocess=None, state_init=state_init,
         upsample_state=upsample, level_callback=level_callback,
-        resume=resume, trace_name="tvl1occflow")
+        resume=resume)
     chi = (state["chi"] > THR_CHI).to(I0.dtype)
     if with_diag:
         return state["u1"], state["u2"], chi, diags

@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from tpuflow_torch import _build
 from tpuflow_torch.ops.hs import D_FLOOR
 from tpuflow_torch.ops.sweeps import check_state_const, run_until_stopped
+from tpuflow_torch.utils.trace import count
 
 SOR_OMEGA = 1.9  # reference src/brox_optic_flow_spatial.cpp:25
 
@@ -134,9 +135,13 @@ def brox_sor_error_plain(state, const, thresh, max_iter, alpha):
     active = torch.full((B,), max_iter > 0, dtype=torch.bool,
                         device=state.device)
     s = state.clone()
-    while bool(active.any()):
+    while True:
+        count("host_reads")
+        if not bool(active.any()):
+            break
         s0 = s.clone()
         _sweep(s, au, av, rdu, rdv, dd, psis, alpha, colors)
+        count("host_reads")
         if not bool(active.all()):
             s = torch.where(active[:, None, None, None], s, s0)
         d = s - s0
@@ -183,8 +188,7 @@ def _solve_resident(state, const, thresh, max_iter, alpha):
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        brox_sor_error.launches += 1
-        brox_sor_error.route_launches["resident"] += 1
+        count("calls.brox_sor_error.resident")
         _build.check(lib.brox_sor_solve(
             state.data_ptr(), const.data_ptr(), partial.data_ptr(),
             partial.numel(), err.data_ptr(), n.data_ptr(), B, ny, nx,
@@ -197,10 +201,10 @@ def _solve_stream(state, const, thresh, max_iter, alpha):
     """Route "stream" on CUDA tensors: three launches per sweep, the
     host reading `active` every CHECK_EVERY sweeps."""
     _library()
-    brox_sor_error.route_launches["stream"] += 1
-    return run_until_stopped(brox_sor_error, "brox_sor", _SIGNATURES,
-                             "brox_sor_run", "brox_sor_partial_len", state,
-                             const, thresh, max_iter, (alpha,))
+    return run_until_stopped("brox_sor_error.stream", "k7", "brox_sor",
+                             _SIGNATURES, "brox_sor_run",
+                             "brox_sor_partial_len", state, const, thresh,
+                             max_iter, (alpha,))
 
 
 def brox_sor_error(state, const, thresh, max_iter, alpha):
@@ -224,8 +228,3 @@ def brox_sor_error(state, const, thresh, max_iter, alpha):
     if device_route(B, ny, nx, state.device) == "resident":
         return _solve_resident(state, const, thresh, max_iter, alpha)
     return _solve_stream(state, const, thresh, max_iter, alpha)
-
-
-# wrapper calls that launched a kernel, in all and per route
-brox_sor_error.launches = 0
-brox_sor_error.route_launches = {"resident": 0, "stream": 0}

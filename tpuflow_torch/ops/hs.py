@@ -39,6 +39,7 @@ import torch
 from tpuflow_torch import _build
 from tpuflow_torch.ops.gradients import _shift_clamp
 from tpuflow_torch.ops.sweeps import check_state_const, launch_until_stopped
+from tpuflow_torch.utils.trace import count
 
 SOR_OMEGA = 1.9  # reference src/horn_schunck_pyramidal.cpp:21
 D_FLOOR = 1e-30  # the TPU kernel's guard on Du, Dv (hs_pallas.py:107-110)
@@ -112,7 +113,7 @@ def _sweep(u, v, au, av, rdu, rdv, dd, alpha2):
 
 def hs_sor_error_plain(state, const, thresh, max_iter, alpha2):
     """Plain PyTorch version of the kernel; same contract as
-    `hs_sor_error`."""
+    `hs_sor_error`.  Counts each read of `active` in `host_reads`."""
     B = state.shape[0]
     au, av, du, dv, dd = const.unbind(1)
     rdu = 1.0 / torch.clamp(du, min=D_FLOOR)
@@ -123,7 +124,10 @@ def hs_sor_error_plain(state, const, thresh, max_iter, alpha2):
     active = torch.full((B,), max_iter > 0, dtype=torch.bool,
                         device=state.device)
     u, v = state[:, 0], state[:, 1]
-    while bool(active.any()):
+    while True:
+        count("host_reads")
+        if not bool(active.any()):
+            break
         un, vn, e = _sweep(u, v, au, av, rdu, rdv, dd, alpha2)
         keep = active[:, None, None]
         u = torch.where(keep, un, u)
@@ -169,7 +173,7 @@ def hs_sor_error(state, const, thresh, max_iter, alpha2):
     thresh, max_iter, alpha2 = float(thresh), int(max_iter), float(alpha2)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        hs_sor_error.launches += 1
+        count("calls.hs_sor_error")
         if device_route(ny, nx) == "level":
             _build.check(lib.hs_sor_solve(
                 state.data_ptr(), const.data_ptr(), err.data_ptr(),
@@ -181,18 +185,15 @@ def hs_sor_error(state, const, thresh, max_iter, alpha2):
                               dtype=torch.float32, device=dev)
         active = torch.ones((B,), dtype=torch.int32, device=dev)
 
-        def sweeps(count):
+        def sweeps(iters):
             _build.check(lib.hs_sor_run(
                 state.data_ptr(), scratch.data_ptr(), const.data_ptr(),
                 partial.data_ptr(), partial.numel(), err.data_ptr(),
                 n.data_ptr(), active.data_ptr(), B, ny, nx, thresh, max_iter,
-                alpha2, count, stream), "hs_sor_run")
+                alpha2, iters, stream), "hs_sor_run")
 
         launch_until_stopped(sweeps, active, max_iter)
         _build.check(lib.hs_sor_finish(state.data_ptr(), scratch.data_ptr(),
                                        n.data_ptr(), B, ny, nx, stream),
                      "hs_sor_finish")
     return state, err, n
-
-
-hs_sor_error.launches = 0

@@ -28,6 +28,7 @@ import torch
 from tpuflow_torch import _build
 from tpuflow_torch._device import check_dtype
 from tpuflow_torch.ops.hs import neighbour_sums
+from tpuflow_torch.utils.trace import count
 
 # the kernel's geometry, as csrc/hs_classic.cu states it (checked when
 # the library loads): a block's interior (rows, columns), and the
@@ -111,10 +112,7 @@ def hs_classic_fused(Ex, Ey, Et, alpha, niter):
                                     Ex.data_ptr(), Ey.data_ptr(),
                                     Et.data_ptr(), B, ny, nx,
                                     float(alpha * alpha), niter, stream)
-    hs_classic_fused.launches += 1
+    count("calls.hs_classic_fused")
     _build.check(status, "hs_classic_run")
     out = bufs[len(launch_steps(niter)) % 2]
     return out[:, 0], out[:, 1]
-
-
-hs_classic_fused.launches = 0

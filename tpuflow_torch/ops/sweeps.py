@@ -13,13 +13,16 @@ the length of their scratch; `run_until_stopped` drives them.
 launches CHECK_EVERY iterations at a time and reads the per-sample
 `active` flags on the host between launches, so a solve ends at most
 CHECK_EVERY - 1 iterations after its last sample stopped (those launches
-return at once for inactive samples).
+return at once for inactive samples).  The loop is a span `solve`, each
+read a span `host_read` counted in `host_reads`
+(tpuflow_torch.utils.trace).
 """
 
 import torch
 
 from tpuflow_torch import _build
 from tpuflow_torch._device import check_dtype
+from tpuflow_torch.utils.trace import count, span
 
 # iterations or sweeps launched between two host reads of `active`
 CHECK_EVERY = 16
@@ -44,13 +47,14 @@ def check_state_const(state, const, n_state, n_const):
         raise ValueError(f"const is on {const.device}, state on {state.device}")
 
 
-def run_until_stopped(wrapper, library, signatures, run, partial_len, state,
-                      const, thresh, max_iter, scalars):
+def run_until_stopped(calls, kernel, library, signatures, run, partial_len,
+                      state, const, thresh, max_iter, scalars):
     """Run kernel library `library`'s entry point `run` on CUDA tensors
     until every sample stopped (err <= thresh) or ran max_iter
-    iterations, counting the launch on `wrapper`; `scalars` are the
-    kernel's float parameters.  Updates `state` in place and returns
-    (state, err (B,) float32, n (B,) int32)."""
+    iterations, counting the call in `calls.<calls>` and each launch's
+    iterations in `iters.<kernel>`; `scalars` are the kernel's float
+    parameters.  Updates `state` in place and returns (state, err (B,)
+    float32, n (B,) int32)."""
     B, _, ny, nx = state.shape
     dev = state.device
     err = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
@@ -65,14 +69,15 @@ def run_until_stopped(wrapper, library, signatures, run, partial_len, state,
     entry = getattr(lib, run)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        wrapper.launches += 1
+        count(f"calls.{calls}")
 
-        def launch(count):
+        def launch(iters):
             status = entry(state.data_ptr(), const.data_ptr(),
                            partial.data_ptr(), partial.numel(), err.data_ptr(),
                            n.data_ptr(), active.data_ptr(), B, ny, nx,
                            float(thresh), int(max_iter),
-                           *(float(s) for s in scalars), count, stream)
+                           *(float(s) for s in scalars), iters, stream)
+            count(f"iters.{kernel}", iters)
             _build.check(status, run)
 
         launch_until_stopped(launch, active, max_iter)
@@ -83,9 +88,13 @@ def launch_until_stopped(launch, active, max_iter):
     """Call launch(count) for CHECK_EVERY iterations at a time, up to
     max_iter in all, until the device flags `active` are all 0."""
     done = 0
-    while done < max_iter:
-        count = min(CHECK_EVERY, max_iter - done)
-        launch(count)
-        done += count
-        if done < max_iter and not bool(active.any()):
-            break
+    with span("solve"):
+        while done < max_iter:
+            chunk = min(CHECK_EVERY, max_iter - done)
+            launch(chunk)
+            done += chunk
+            if done < max_iter:
+                with span("host_read"):
+                    count("host_reads")
+                    if not bool(active.any()):
+                        break

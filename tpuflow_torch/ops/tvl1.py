@@ -30,6 +30,7 @@ import torch
 
 from tpuflow_torch.ops.gradients import divergence, forward_gradient
 from tpuflow_torch.ops.sweeps import check_state_const, run_until_stopped
+from tpuflow_torch.utils.trace import count
 
 GRAD_IS_ZERO = 1e-10  # reference src/tvl1flow.cpp:24
 
@@ -75,7 +76,8 @@ def _step(state, iwx, iwy, rho_c, grad, fi, l_t, theta, taut,
 def tvl1_iterate_error_plain(state, const, thresh, max_iter, l_t, theta,
                              taut):
     """Plain PyTorch version of the kernel; same contract as
-    `tvl1_iterate_error`."""
+    `tvl1_iterate_error`.  Counts each read of `active` in `host_reads`
+    and each iteration in `iters.k2`."""
     B = state.shape[0]
     iwx, iwy, rho_c, grad = const.unbind(1)
     fi = -1.0 / torch.clamp(grad, min=GRAD_IS_ZERO)
@@ -85,7 +87,11 @@ def tvl1_iterate_error_plain(state, const, thresh, max_iter, l_t, theta,
     active = torch.full((B,), max_iter > 0, dtype=torch.bool,
                         device=state.device)
     cur = state
-    while bool(active.any()):
+    while True:
+        count("host_reads")
+        if not bool(active.any()):
+            break
+        count("iters.k2")
         new, e = _step(cur, iwx, iwy, rho_c, grad, fi, l_t, theta, taut)
         cur = torch.where(active[:, None, None, None], new, cur)
         err = torch.where(active, e, err)
@@ -108,9 +114,7 @@ def tvl1_iterate_error(state, const, thresh, max_iter, l_t, theta, taut):
                                         theta, taut)
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
-    return run_until_stopped(tvl1_iterate_error, "tvl1_iterate", _SIGNATURES,
-                             "tvl1_iterate_run", "tvl1_partial_len", state,
-                             const, thresh, max_iter, (l_t, theta, taut))
-
-
-tvl1_iterate_error.launches = 0
+    return run_until_stopped("tvl1_iterate_error", "k2", "tvl1_iterate",
+                             _SIGNATURES, "tvl1_iterate_run",
+                             "tvl1_partial_len", state, const, thresh,
+                             max_iter, (l_t, theta, taut))

@@ -59,9 +59,11 @@ picks the planes a thread warps, GROUPS[0] or GROUPS[1], from the
 level's size and the device's SMs.  No switch picks it, a refused
 launch raises, and nothing falls back to the plain version.  The
 kernels take u and v as two pointers with one batch stride, so a call
-launches the kernel and nothing else.  Each wrapper has its own launch
-count, and K5's and K5p's their counts per group (`group_launches`),
-so a run can show them apart.  On a CUDA tensor a wrapper launches the
+launches the kernel and nothing else.  The launches are counted
+(tpuflow_torch.utils.trace): K1's in `launches.k1`, K3's in
+`launches.k3`, K5's and K5p's per group in
+`calls.warp_planes[_shift]_batched.g<planes>`, so a run can show them
+apart.  On a CUDA tensor a wrapper launches the
 kernel (or raises); on a CPU tensor it runs `warp_const_plain`,
 `warp_planes_plain` or `warp_planes_shift_plain`, the same arithmetic
 in PyTorch.
@@ -74,6 +76,7 @@ import torch
 
 from tpuflow_torch import _build
 from tpuflow_torch._device import check_dtype
+from tpuflow_torch.utils.trace import count
 
 _SIGNATURES = {
     "warp_const_tvl1": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
@@ -235,9 +238,9 @@ def _on_card(t):
     return True
 
 
-def _launch(wrapper, mode, planes, uv, aux, dmax, alpha2):
-    """Run `mode`'s kernel on a CUDA tensor (counting the launch on
-    `wrapper`), its plain version on a CPU tensor."""
+def _launch(kernel, mode, planes, uv, aux, dmax, alpha2):
+    """Run `mode`'s kernel on a CUDA tensor (counting the launch in
+    `launches.<kernel>`), its plain version on a CPU tensor."""
     _check(planes, uv, aux, dmax)
     if not _on_card(planes):
         return warp_const_plain(planes, uv, aux, dmax, mode, alpha2)
@@ -255,7 +258,7 @@ def _launch(wrapper, mode, planes, uv, aux, dmax, alpha2):
                                      uv.stride(0), aux.data_ptr(),
                                      out.data_ptr(), B, ny, nx, int(dmax),
                                      *extra, stream)
-    wrapper.launches += 1
+    count(f"launches.{kernel}")
     _build.check(status, entry)
     return out, 0
 
@@ -272,7 +275,7 @@ def warp_const_batched(planes, uv, aux, dmax, mode="tvl1", alpha2=0.0):
         return warp_const_hs_batched(planes, uv, aux, dmax, alpha2)
     if mode != "tvl1":
         raise ValueError(f"unknown mode {mode!r}")
-    return _launch(warp_const_batched, "tvl1", planes, uv, aux, dmax, 0.0)
+    return _launch("k1", "tvl1", planes, uv, aux, dmax, 0.0)
 
 
 def warp_const_hs_batched(planes, uv, aux, dmax, alpha2):
@@ -280,8 +283,7 @@ def warp_const_hs_batched(planes, uv, aux, dmax, alpha2):
 
     Same inputs as `warp_const_batched` with aux = I1; returns
     ((B, 5, ny, nx) = (Au, Av, Du, Dv, D), overflow count = 0)."""
-    return _launch(warp_const_hs_batched, "hs", planes, uv, aux, dmax,
-                   alpha2)
+    return _launch("k3", "hs", planes, uv, aux, dmax, alpha2)
 
 
 def plane_groups(P, largest):
@@ -324,9 +326,8 @@ def _planes_on_card(shift, border_out, planes, u, v, uv_bstride, dmax,
     """Launch K5 (or K5p with `shift`) on CUDA tensors: planes (B, P, ny,
     nx) contiguous, sample b's flow at u and v + b * uv_bstride, each
     (ny, nx) contiguous; `group` planes a thread (default:
-    `device_group`'s), counting the launch on the wrapper in all and per
-    group."""
-    wrapper = warp_planes_shift_batched if shift else warp_planes_batched
+    `device_group`'s), counting the launch per wrapper and group."""
+    wrapper = "warp_planes_shift_batched" if shift else "warp_planes_batched"
     B, P, ny, nx = planes.shape
     out = torch.empty_like(planes)
     if out.numel() == 0:
@@ -341,8 +342,7 @@ def _planes_on_card(shift, border_out, planes, u, v, uv_bstride, dmax,
             out.data_ptr(), B, ny, nx, int(dmax),
             _VARIANT[bool(shift), bool(border_out) or not shift], group,
             stream)
-    wrapper.launches += 1
-    wrapper.group_launches[group] += 1
+    count(f"calls.{wrapper}.g{group}")
     _build.check(status, "warp_planes")
     return out
 
@@ -419,12 +419,3 @@ def warp_planes_shift_batched(planes, uv, dmax, border_out=True):
         return warp_planes_shift_plain(planes, uv, dmax, border_out)
     return _planes_on_card(True, border_out, planes, uv[:, 0], uv[:, 1],
                            uv.stride(0), dmax), 0
-
-
-# wrapper calls that launched a kernel, in all and (K5, K5p) per group
-warp_const_batched.launches = 0
-warp_const_hs_batched.launches = 0
-warp_planes_batched.launches = 0
-warp_planes_batched.group_launches = dict.fromkeys(GROUPS, 0)
-warp_planes_shift_batched.launches = 0
-warp_planes_shift_batched.group_launches = dict.fromkeys(GROUPS, 0)

@@ -43,6 +43,7 @@ from tpuflow_torch.models.common import run_pyramid_state
 from tpuflow_torch.ops.pyramid import clamp_nscales
 from tpuflow_torch.parallel.halo import exchange_1d
 from tpuflow_torch.parallel.mesh import axis_size, gather_batch
+from tpuflow_torch.utils.trace import traced
 
 
 def brox_temporal_scale_sharded(I, u, v, mesh, axis_name="t",
@@ -137,6 +138,7 @@ def brox_temporal_sharded(I, mesh, axis_name="t", u0=None, v0=None,
     return (u, v) + tuple(out[2:])
 
 
+@traced
 def brox_temporal_multiscale_sharded(I, mesh, axis_name="t",
                                      alpha=DEFAULT_ALPHA,
                                      gamma=DEFAULT_GAMMA, nscales=100,
@@ -181,8 +183,7 @@ def brox_temporal_multiscale_sharded(I, mesh, axis_name="t",
 
     state = run_pyramid_state(
         (I,), nscales, zfactor, solve, presmooth=None,
-        preprocess=preprocess_volume, state_init=state_init,
-        trace_name="brox_temporal_sharded")
+        preprocess=preprocess_volume, state_init=state_init)
     if with_diag:
         return state["u1"], state["u2"], diags
     return state["u1"], state["u2"]
