@@ -84,7 +84,13 @@ then runs these phases, each printing one JSON line:
      CUDA events (`graph_ms`), the profiler's median beside them; K5 and
      K5p at every shape where the main paths launch them, with both plane
      counts a thread may take (K5 also at B = 8, Brox temporal's level
-     0).  A kernel read below its bound fails the run.
+     0).  A kernel read below its bound fails the run.  Then K8 (the
+     pyramid, `check_pyramid`) on the B=128 timing pairs against the
+     plain pyramid on the card: every level of both images bit for bit
+     at zfactor 0.5 and within 1e-4 at 0.75, one launch a level, and its
+     device time per level and per call beside its bound and the plain
+     pyramid's; the batched TV-L1 and HS main paths must launch K8 once a
+     level (7 at 1024x436).
 
 Right after the build, `warmup` of every method; after the main paths,
 the ops that no solver calls against their float64 CPU run, float64
@@ -628,11 +634,15 @@ def plain_versions():
     """Run the engines through the kernels' plain versions (on whatever
     device the tensors lie on) inside the block."""
     import tpuflow_torch.models.batch as batch
+    import tpuflow_torch.models.common as common
     # tpuflow_torch.models exports functions of these modules' names
     brox = importlib.import_module("tpuflow_torch.models.brox_spatial")
     classic = importlib.import_module("tpuflow_torch.models.hs_classic")
+    temporal = importlib.import_module("tpuflow_torch.models.brox_temporal")
+    rexpo = importlib.import_module("tpuflow_torch.models.robust_expo")
     import tpuflow_torch.ops.interp as interp
     from tpuflow_torch.ops.brox import brox_sor_error_plain
+    from tpuflow_torch.ops.gaussian import gaussian_plain
     from tpuflow_torch.ops.hs import hs_sor_error_plain
     from tpuflow_torch.ops.hs_classic import hs_classic_fused_plain
     from tpuflow_torch.ops.tvl1 import tvl1_iterate_error_plain
@@ -644,7 +654,10 @@ def plain_versions():
                   (batch, "hs_sor_error", hs_sor_error_plain),
                   (classic, "hs_classic_fused", hs_classic_fused_plain),
                   (interp, "warp_planes_uv", _warp_uv_plain),
-                  (brox, "brox_sor_error", brox_sor_error_plain)]):
+                  (brox, "brox_sor_error", brox_sor_error_plain),
+                  (common, "build_pyramid", common.build_pyramid_plain),
+                  (temporal, "gaussian", gaussian_plain),
+                  (rexpo, "gaussian", gaussian_plain)]):
         yield
 
 
@@ -734,6 +747,7 @@ def main_path(dev, counters, engine, kernels_used, synth_bound, **kw):
     (u, v, *stats), seconds, launches = counted(
         counters, lambda: engine(I0, I1, **kw))
     reads = [since_reset("host_reads"), since_reset("iters.k2")]
+    k8 = since_reset("launches.k8")   # the pyramid: once a level
     with plain_versions():
         pu, pv, *_ = engine(I0, I1, **{k: a for k, a in kw.items()
                                        if k != "with_stats"})
@@ -743,7 +757,7 @@ def main_path(dev, counters, engine, kernels_used, synth_bound, **kw):
     tu, tv = (torch.as_tensor(f, dtype=torch.float32, device=dev)
               for f in synth_flow(NY, NX))
     out = {"engine": engine.__name__, "shape": [B_CHECK, NY, NX],
-           "seconds": seconds, "launches": launches,
+           "seconds": seconds, "launches": launches, "k8_launches": k8,
            "epe_kernels_vs_plain": epe(u, v, pu, pv),
            "epe_vs_synthetic_flow": epe(u, v, -tu, -tv)}
     if stats:
@@ -1734,19 +1748,22 @@ def main_path_cli(dev, counters, per_pair, mains):
 
 
 # device kernels grouped by the part of an engine that launches them
+K8_GROUP = ("pyramid_level_kernel", "K8 pyramid")
 TVL1_GROUPS = (("warp_const", "K1 warp_const"), ("tvl1_primal", "K2 tvl1_iterate"),
                ("tvl1_dual", "K2 tvl1_iterate"), ("stop_finalize", "K2 tvl1_iterate"),
-               ("gemm", "zoom matmul"))
+               K8_GROUP, ("gemm", "zoom_in matmul"))
 HS_GROUPS = (("warp_const", "K3 warp_const_hs"), ("hs_sor_tiles", "K4 hs_sor"),
              ("hs_sor_level", "K4 hs_sor"), ("hs_sor_settle", "K4 hs_sor"),
-             ("stop_finalize", "K4 hs_sor"), ("gemm", "zoom matmul"))
+             ("stop_finalize", "K4 hs_sor"), K8_GROUP,
+             ("gemm", "zoom_in matmul"))
 CLASSIC_GROUPS = (("hs_classic_block", "K6 hs_classic"),)
-SEQUENCE_GROUPS = (("warp_planes_kernel", "K5/K5p warp_planes"),
-                   ("gemm", "zoom matmul"))
+SEQUENCE_GROUPS = (("warp_planes_kernel", "K5/K5p warp_planes"), K8_GROUP,
+                   ("gemm", "zoom_in matmul"))
 BROX_GROUPS = (("warp_planes_kernel", "K5/K5p warp_planes"),
                ("brox_sor_resident", "K7 brox_sor"),
                ("brox_sor_color", "K7 brox_sor"),
-               ("stop_finalize", "K7 brox_sor"), ("gemm", "zoom matmul"))
+               ("stop_finalize", "K7 brox_sor"), K8_GROUP,
+               ("gemm", "zoom_in matmul"))
 # K7's device kernels: route "resident"'s, then route "stream"'s
 K7_KERNELS = ("brox_sor_resident", "brox_sor_color", "stop_finalize")
 
@@ -1957,6 +1974,100 @@ WARMUP_GEOMETRY = (B_CHECK, 436, 1024)
 # seed pair's flow (at most 2 px) well inside halo - 3
 TILE_WARP_HALO = 8
 TILE_EPE_TOL = 1e-5
+
+
+# K8 against the plain pyramid at zfactor 0.75, on the [0, 255] scale:
+# the Keys weights of 0.75 are summed in another order than the GEMM's
+PYRAMID_TOL_075 = 1e-4
+
+
+def check_pyramid(dev, I0, I1):
+    """K8 (tpuflow_torch.ops.pyramid_level) at the batch geometry: the
+    pyramid of (I0, I1) against `build_pyramid_plain` on the card, every
+    level of both images, bit for bit at zfactor 0.5 and within
+    PYRAMID_TOL_075 at 0.75 (the whole pyramid, and each level made from
+    the plain level above), one launch a level; then its device time per
+    level and per call (`graph_ms`, L2 not flushed: a level-0 image set
+    is 4.6 times the L2) beside its bytes bound (each level read once and
+    written once; the min/max reads both images once) and the plain
+    pyramid's time.  A CUDA tensor K8 does not take (float64) raises a
+    ValueError in `gaussian`, `zoom_out` and `build_pyramid`."""
+    from tpuflow_torch.models.common import build_pyramid, build_pyramid_plain
+    from tpuflow_torch.ops.gaussian import gaussian, gaussian_taps
+    from tpuflow_torch.ops.normalize import joint_range
+    from tpuflow_torch.ops.pyramid import (clamp_nscales, zoom_out,
+                                           zoom_out_levels, zoom_out_plain)
+    from tpuflow_torch.ops.pyramid_level import pyramid_level
+
+    B, ny, nx = I0.shape
+    nscales = clamp_nscales(nx, ny, 0.5, 100)   # tvl1flow's: 7
+    out = {"batch": B, "shape": [ny, nx], "nscales": nscales}
+    for z in (0.5, 0.75):
+        reset()
+        got, sizes = build_pyramid((I0, I1), nscales, z)
+        torch.cuda.synchronize()
+        launches = since_reset("launches.k8")
+        want, _ = build_pyramid_plain((I0, I1), nscales, z)
+        err = [[float((a - b).abs().max()) for a, b in zip(g, w)]
+               for g, w in zip(got, want)]
+        equal = all(torch.equal(a, b) for g, w in zip(got, want)
+                    for a, b in zip(g, w))
+        # each level alone: K8 and the plain zoom_out of the plain level above
+        alone = [[float((a - zoom_out_plain(w, z, sizes[s])).abs().max())
+                  for a, w in zip(zoom_out_levels(want[s - 1], z, sizes[s]),
+                                  want[s - 1])] for s in range(1, nscales)]
+        out[f"zfactor_{z}"] = {"sizes": sizes, "launches": launches,
+                               "bit_equal": equal, "max_abs_err": err,
+                               "level_alone_max_abs_err": alone}
+        del got, want
+        if launches != nscales:
+            raise AssertionError(f"pyramid: {launches} K8 launches for "
+                                 f"{nscales} levels: {out}")
+        if z == 0.5 and not equal:
+            raise AssertionError(f"pyramid: K8 not bit-equal to the plain "
+                                 f"pyramid at zfactor 0.5: {out}")
+        if not max(max(e) for e in err + alone) <= PYRAMID_TOL_075:
+            raise AssertionError(f"pyramid: K8 far from the plain pyramid "
+                                 f"at zfactor {z}: {out}")
+    d = I0[:2].double()
+    refused = {}
+    for name, fn in (("gaussian", lambda: gaussian(d, 0.8)),
+                     ("zoom_out", lambda: zoom_out(d, 0.5)),
+                     ("build_pyramid", lambda: build_pyramid((d, d), 3, 0.5))):
+        try:
+            fn()
+            refused[name] = False
+        except ValueError:
+            refused[name] = True
+    out["float64_refused"] = refused
+    if not all(refused.values()):
+        raise AssertionError(f"pyramid: a CUDA float64 tensor ran: {out}")
+    levels, sizes = build_pyramid((I0, I1), nscales, 0.5)
+    norm = joint_range(I0, I1)
+    taps = gaussian_taps(0.8, I0.dtype)
+    steps = [("minmax", lambda: joint_range(I0, I1), 2 * B * ny * nx),
+             ("level_0", lambda: pyramid_level((I0, I1), taps, norm=norm),
+              4 * B * ny * nx)]
+    for s in range(1, nscales):
+        (px, py), (cx, cy) = sizes[s - 1], sizes[s]
+        steps.append((f"level_{s}", lambda s=s: zoom_out_levels(
+            levels[s - 1], 0.5, sizes[s]), 2 * B * (px * py + cx * cy)))
+    per_level = {}
+    for name, fn, floats in steps:
+        ms = graph_ms(fn, 10, False)
+        bound = 1e3 * 4 * floats / HBM_BYTES_PER_S
+        per_level[name] = {"ms": ms, "bound_ms": bound, "x_bound": ms / bound}
+    call_ms = graph_ms(lambda: build_pyramid((I0, I1), nscales, 0.5), 10,
+                       False)
+    bound = sum(v["bound_ms"] for v in per_level.values())
+    out.update(per_level=per_level, k8_ms=sum(
+                   v["ms"] for k, v in per_level.items() if k != "minmax"),
+               call_ms=call_ms, bound_ms=bound, call_x_bound=call_ms / bound,
+               plain_ms=graph_ms(lambda: build_pyramid_plain(
+                   (I0, I1), nscales, 0.5), 2, False))
+    if call_ms < bound:
+        raise AssertionError(f"pyramid: K8 read below its bound: {out}")
+    return out
 
 
 def ops_checks(dev):
@@ -2575,6 +2686,7 @@ def main():
     from tpuflow_torch.ops.hs import hs_sor_error
     from tpuflow_torch.ops.hs_classic import hs_classic_fused
     from tpuflow_torch.ops.interp import K5_MIN_PIXELS
+    from tpuflow_torch.ops.pyramid import clamp_nscales
     from tpuflow_torch.ops.tvl1 import tvl1_iterate_error
     from tpuflow_torch.ops.warp import (warp_const_batched,
                                         warp_const_hs_batched,
@@ -2657,6 +2769,13 @@ def main():
                                 (hs_classic_fused,), None,
                                 niter=CLASSIC_NITER, alpha=CLASSIC_ALPHA),
     }
+    # one K8 launch a pyramid level: 7 at 1024x436 (tvl1flow's clamp)
+    if paths["tvl1"]["k8_launches"] != clamp_nscales(NX, NY, 0.5, 100):
+        raise AssertionError(f"tvl1: K8 not launched once a level: "
+                             f"{paths['tvl1']}")
+    if paths["hs"]["k8_launches"] != len(paths["hs"]["iterations"]):
+        raise AssertionError(f"hs: K8 not launched once a level: "
+                             f"{paths['hs']}")
     # the single-pair solvers at the reference CLI defaults: 5 levels at
     # 1024x436 (clamped on min(nx, ny)), 15 outer x 1 inner iterations,
     # one warp launch and one K7 call per outer iteration; the warp is K5
@@ -2726,6 +2845,7 @@ def main():
     ]
     for t in timings:
         emit(phase="timing", **t)
+    emit(phase="pyramid_vs_plain", **check_pyramid(dev, I0, I1))
     emit(phase="parallel", **parallel_lanes(dev, counters, I0, I1))
     lvl0 = level0_kernels(dev, I0, I1)
     emit(phase="level0_kernels", batch=B_TIME, shape=[NY, NX], **lvl0)

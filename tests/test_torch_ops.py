@@ -53,7 +53,9 @@ def test_normalize_pair_batched(solver_goldens):
     g = solver_goldens
     a = np.stack([g["I0"], 3.0 * g["I1"] - 7.0, np.full_like(g["I0"], 5.0)])
     b = np.stack([g["I1"], 0.5 * g["I0"], np.full_like(g["I0"], 5.0)])
-    p0, p1 = tnorm.normalize_pair_batched(_t(a), _t(b))
+    # normalize_joint of (B, H, W) stacks: each pair jointly (the batched
+    # engines' preprocessing)
+    p0, p1 = tnorm.normalize_joint(_t(a), _t(b))
     j0, j1 = j_normalize_pair(jnp.asarray(a), jnp.asarray(b))
     _close(p0, j0, 1e-10)
     _close(p1, j1, 1e-10)

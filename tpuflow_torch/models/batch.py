@@ -43,7 +43,6 @@ from tpuflow_torch.models.hs_pyramidal import (DEFAULT_ALPHA, DEFAULT_MAXITER,
                                                DEFAULT_WARPS, DEFAULT_ZFACTOR)
 from tpuflow_torch.ops.gradients import centered_gradient
 from tpuflow_torch.ops.hs import hs_sor_error
-from tpuflow_torch.ops.normalize import normalize_pair_batched
 from tpuflow_torch.ops.pyramid import clamp_nscales, zoom_size
 from tpuflow_torch.ops.tvl1 import tvl1_iterate_error
 from tpuflow_torch.ops.warp import warp_const_batched, warp_const_hs_batched
@@ -202,7 +201,7 @@ def _batched_pyramid(I0, I1, nscales, zfactor, max_motion, thresh_base,
 
     state = run_pyramid_state(
         (I0, I1), nscales, zfactor, solve, state_init, presmooth=0.8,
-        preprocess=lambda ims: normalize_pair_batched(*ims),
+        preprocess="normalize",   # (B, H, W) pairs: each pair jointly
         level_callback=level_callback, resume=resume)
     return state["u1"], state["u2"], state["oflow"]
 

@@ -15,9 +15,12 @@ and each level's solver is a few launches per warp.
 
 import torch
 
-from tpuflow_torch.ops.gaussian import gaussian
-from tpuflow_torch.ops.normalize import normalize_joint
-from tpuflow_torch.ops.pyramid import pyramid_sizes, zoom_in, zoom_out
+from tpuflow_torch.ops.gaussian import gaussian_plain, gaussian_taps
+from tpuflow_torch.ops.normalize import joint_range, normalize_joint
+from tpuflow_torch.ops.pyramid import (pyramid_sizes, zoom_in,
+                                       zoom_out_levels, zoom_out_plain)
+from tpuflow_torch.ops.pyramid_level import (check_images, on_card,
+                                             pyramid_level)
 from tpuflow_torch.utils.trace import span
 
 PRESMOOTHING_SIGMA = 0.8  # reference src/tvl1flow.cpp:23
@@ -28,16 +31,41 @@ def build_pyramid(images, nscales, zfactor, presmooth=PRESMOOTHING_SIGMA,
     """Normalize + presmooth + pyramid for a tuple of same-shape images.
 
     Returns (levels, sizes): `levels[s]` is a tuple of images at scale s
-    (finest first), `sizes[s]` the (nx, ny) of that scale."""
+    (finest first), `sizes[s]` the (nx, ny) of that scale.
+    `build_pyramid_plain` for CPU images; else each level is one launch
+    of K8 for all the images (the normalisation fused into the first),
+    and `levels[s]` are views of one buffer: CUDA float32 images, a
+    ValueError for any other dtype or device."""
+    if not on_card(images[0]):
+        return build_pyramid_plain(images, nscales, zfactor, presmooth,
+                                   normalize)
+    check_images(images)
+    ny, nx = images[0].shape[-2:]
+    sizes = pyramid_sizes(nx, ny, zfactor, nscales)
+    taps = gaussian_taps(presmooth or 0, images[0].dtype)
+    level = images
+    if normalize or taps:
+        norm = joint_range(*images) if normalize else None
+        level = tuple(pyramid_level(images, taps, norm=norm))
+    levels = [level]
+    for s in range(1, nscales):
+        levels.append(tuple(zoom_out_levels(levels[-1], zfactor,
+                                            out_size=sizes[s])))
+    return levels, sizes
+
+
+def build_pyramid_plain(images, nscales, zfactor,
+                        presmooth=PRESMOOTHING_SIGMA, normalize=True):
+    """Plain PyTorch version of `build_pyramid`."""
     if normalize:
         images = normalize_joint(*images)
     if presmooth:
-        images = tuple(gaussian(im, presmooth) for im in images)
+        images = tuple(gaussian_plain(im, presmooth) for im in images)
     ny, nx = images[0].shape[-2:]
     sizes = pyramid_sizes(nx, ny, zfactor, nscales)
     levels = [images]
     for s in range(1, nscales):
-        levels.append(tuple(zoom_out(im, zfactor, out_size=sizes[s])
+        levels.append(tuple(zoom_out_plain(im, zfactor, out_size=sizes[s])
                             for im in levels[-1]))
     return levels, sizes
 

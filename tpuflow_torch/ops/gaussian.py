@@ -12,7 +12,11 @@ Replicates reference src/operators.cpp:506-624:
   * 'dirichlet' pads with zeros.
 
 Each axis is a shift-and-add over the padded rows: half-widths are at
-most ~13 taps, and the sum keeps the reference's order of terms.
+most ~13 taps, and the sum keeps the reference's order of terms.  That
+is `gaussian_plain`; `gaussian` with the reflecting pad on any tensor
+not on the CPU is one launch of K8 (`tpuflow_torch.ops.pyramid_level`),
+which keeps the same order of terms and rounding, takes CUDA float32
+and raises for any other dtype or device.
 
 `sgauss_kernel` and `sepconvol` are the reference's other Gaussian
 (me_sgauss, me_sepconvol, src/utils.cpp:15-127), with mirror-no-edge
@@ -21,6 +25,8 @@ most ~13 taps, and the sum keeps the reference's order of terms.
 
 import numpy as np
 import torch
+
+from tpuflow_torch.ops.pyramid_level import on_card, pyramid_level
 
 DEFAULT_WINDOW = 5  # reference src/operators.h:120
 
@@ -64,16 +70,34 @@ def _conv_axis(a, weights, size, dim, bc):
     return out
 
 
+def gaussian_taps(sigma, dtype, window=DEFAULT_WINDOW):
+    """The one-sided weights as Python floats, rounded to `dtype`, as the
+    reference's arithmetic; none for sigma <= 0."""
+    if sigma <= 0:
+        return []
+    return torch.tensor(gaussian_kernel_1d(sigma, window)[0],
+                        dtype=dtype).tolist()
+
+
 def gaussian(I, sigma, bc="reflecting", window=DEFAULT_WINDOW):
     """Separable Gaussian smoothing of (..., H, W) tensors, rows first.
 
     Matches reference `gaussian()` (src/operators.cpp:506-624) to
-    floating-point accuracy, including its asymmetric reflecting pad."""
+    floating-point accuracy, including its asymmetric reflecting pad.
+    `gaussian_plain` for a CPU tensor and for the zero pad; else one
+    launch of K8 for the reflecting pad: a CUDA float32 tensor, a
+    ValueError for any other dtype or device."""
+    if sigma > 0 and bc == "reflecting" and on_card(I):
+        return pyramid_level((I,), gaussian_taps(sigma, I.dtype, window))[0]
+    return gaussian_plain(I, sigma, bc, window)
+
+
+def gaussian_plain(I, sigma, bc="reflecting", window=DEFAULT_WINDOW):
+    """Plain PyTorch version of `gaussian`."""
     if sigma <= 0:
         return I
-    w_np, size = gaussian_kernel_1d(sigma, window)
-    # weights rounded to the input's dtype, as the reference's arithmetic
-    weights = torch.tensor(w_np, dtype=I.dtype).tolist()
+    weights = gaussian_taps(sigma, I.dtype, window)
+    size = len(weights)
     if size <= 1:
         return I * weights[0]
     out = _conv_axis(I, weights, size, -1, bc)
