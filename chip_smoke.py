@@ -67,7 +67,13 @@ then runs these phases, each printing one JSON line:
      alone (brox_temporal on the 9 frames as PFM, each flowNN.flo against
      the direct call; tvl1occflow on the triplet as PFM, its occlusion
      PNG equal to chi * 255 of the direct call);
-  4. timing at the benchmark geometry: the batched engines at B=128
+  4. `brox_spatial_batched` on the B=128 timing pairs at the reference
+     CLI defaults: each level's K7 route as `brox_sor_route` gives it on
+     the card (15 calls a level), its K5 or K5p launches (15 a level),
+     K7's sweeps launched against what the stats imply, the call's
+     seconds and peak memory, and samples 0, 1, 63 and 127 against
+     `brox_spatial` on their pairs (EPE <= 0.01);
+  5. timing at the benchmark geometry: the batched engines at B=128
      (fields/s), the single-pair solvers on one pair (seconds per pair),
      each over 3 reps after one warm call (Brox temporal per volume and
      TV-L1 with occlusions per triplet over 2, after the kernel timing
@@ -907,6 +913,100 @@ def pair_main_path(dev, counters, engine, synth_bound, expect,
                              f"{ {k.__name__: n for k, n in expect.items()} }")
     if not out["epe_vs_synthetic_flow"] <= synth_bound:
         raise AssertionError(f"main path: flow far from the truth: {out}")
+    return out
+
+
+# the batched Brox path against the single-pair one on the same pairs:
+# K7 takes route "stream" there and "resident" here, which sum each
+# solve's error in other orders, so a solve may stop a sweep apart
+# (about 1e-4 px a pixel at tol 1e-4), which the levels above magnify;
+# the bound is the one the pair paths' kernels hold against their plain
+# versions, and a batching fault (a sample's flow, stop or pyramid mixed
+# with another's) lands far above it
+BATCHED_BROX_EPE = 0.01
+BATCHED_BROX_SAMPLES = (0, 1, 63, 127)
+
+
+def batched_brox_path(dev, counters, I0, I1):
+    """`brox_spatial_batched` on the B_TIME timing pairs at 1024x436 at the
+    reference CLI defaults, with its stats, each level's K7 route and
+    K5 / K5p launches recorded as the level is solved: per level 15 K7
+    calls on the route `device_route` gives B_TIME systems of the level
+    (expected: "stream" at levels 0-3, "resident" at level 4), 15 warp
+    launches (K5 at levels of at least 96x96 px, K5p below), and K7's
+    `iters.k7` the sweeps the stats imply (route "stream" rounds each
+    solve's slowest sample up to CHECK_EVERY); then a few samples
+    against `brox_spatial` on their pairs (BATCHED_BROX_EPE)."""
+    from tpuflow_torch import brox_spatial, brox_spatial_batched
+    from tpuflow_torch.ops.brox import device_route
+    from tpuflow_torch.ops.interp import K5_MIN_PIXELS
+    from tpuflow_torch.ops.sweeps import CHECK_EVERY
+    from tpuflow_torch.ops.warp import (device_group, warp_planes_batched,
+                                        warp_planes_shift_batched)
+
+    bs = importlib.import_module("tpuflow_torch.models.brox_spatial")
+    scale_fn = bs.brox_scale
+    B = I0.shape[0]
+    per_level = []
+
+    def recorded(l1, *args, **kw):
+        before = trace_counters()
+        out = scale_fn(l1, *args, **kw)
+        after = trace_counters()
+        ny, nx = l1.shape[-2:]
+        per_level.append({
+            "shape": [ny, nx],
+            "route_expected": device_route(B, ny, nx, dev),
+            "k7_calls": {r: after.get(f"calls.brox_sor_error.{r}", 0)
+                         - before.get(f"calls.brox_sor_error.{r}", 0)
+                         for r in K7_ROUTES},
+            "iters_k7": after.get("iters.k7", 0) - before.get("iters.k7", 0),
+            "warps": {k: after.get(k, 0) - before.get(k, 0)
+                      for k in after if k.startswith("calls.warp_planes")
+                      and after.get(k, 0) != before.get(k, 0)}})
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    with swapped([(bs, "brox_scale", recorded)]):
+        (u, v, stats), seconds, launches = counted(
+            counters, lambda: brox_spatial_batched(I0, I1, with_stats=True))
+    peak = torch.cuda.max_memory_allocated()
+    levels = dict(zip(sorted(stats["iterations"], reverse=True), per_level))
+    wrong = []
+    for s, lv in levels.items():
+        ny, nx = lv["shape"]
+        solves = stats["iterations"][s]
+        lv["sweeps_needed"] = sum(sum(n) for n in solves)
+        lv["sweeps_slowest"] = [max(n) for n in solves]
+        lv["sweeps_launched"] = sum(min(-(-max(n) // CHECK_EVERY)
+                                        * CHECK_EVERY, 300) for n in solves)
+        kernel = (warp_planes_batched if nx * ny >= K5_MIN_PIXELS
+                  else warp_planes_shift_batched)
+        group = device_group(B, ny, nx, torch.cuda.current_device())
+        want = {"k7_calls": {r: 15 * (r == lv["route_expected"])
+                             for r in K7_ROUTES},
+                "iters_k7": (lv["sweeps_launched"]
+                             if lv["route_expected"] == "stream" else 0),
+                "warps": {f"calls.{kernel.__name__}.g{group}": 15}}
+        if any(lv[k] != w for k, w in want.items()):
+            wrong.append((s, want))
+    pairs_epe = {}
+    for k in BATCHED_BROX_SAMPLES:
+        pu, pv = brox_spatial(I0[k], I1[k])
+        pairs_epe[k] = epe(u[k], v[k], pu, pv)
+    out = {"shape": list(I0.shape), "seconds": seconds,
+           "fields_per_s": B / seconds, "max_memory_allocated_bytes": peak,
+           "launches": launches, "levels": {str(s): lv
+                                             for s, lv in levels.items()},
+           "epe_vs_pair": pairs_epe}
+    if wrong:
+        raise AssertionError(f"batched Brox: routes, K7 sweeps or warps "
+                             f"{wrong}: {out}")
+    if not all(e <= BATCHED_BROX_EPE for e in pairs_epe.values()):
+        raise AssertionError(f"batched Brox: samples far from their pair "
+                             f"calls: {out}")
+    if not bool(torch.isfinite(u).all() and torch.isfinite(v).all()):
+        raise AssertionError("batched Brox: flow not finite")
     return out
 
 
@@ -1968,7 +2068,7 @@ def level_solve(dev, batch, ny=55, nx=128):
 # output's largest value (at least 1)
 OPS_REL_TOL = 1e-4
 ALL_METHODS = ("tvl1", "hs", "occflow", "robust_expo", "brox_spatial",
-               "brox_temporal")
+               "brox_temporal", "brox_batched")
 WARMUP_GEOMETRY = (B_CHECK, 436, 1024)
 # the tile lane's warp halo: TV-L1 from zero flow at level 0 moves the
 # seed pair's flow (at most 2 px) well inside halo - 3
@@ -2162,7 +2262,7 @@ def dtype_check(dev, counters):
 
 
 def warmup_check(dev):
-    """`warmup` of all six methods at (B_CHECK, 436, 1024) on the card,
+    """`warmup` of all seven methods at (B_CHECK, 436, 1024) on the card,
     then one `tvl1_batched` call at that geometry (its seconds)."""
     from tpuflow_torch import tvl1_batched, warmup
 
@@ -2831,6 +2931,8 @@ def main():
     emit(phase="checkpoint", **checkpoint_check(dev))
 
     I0, I1 = pairs(B_TIME, NY, NX, dev)
+    emit(phase="main_path_brox_spatial_batched",
+         **batched_brox_path(dev, counters, I0, I1))
     timings = [
         engine_timing(tvl1_batched, I0, I1, counters, TVL1_GROUPS,
                       stop="error"),

@@ -286,7 +286,7 @@ def test_no_counterpart_names_are_absent():
 def test_warmup_runs_every_method_on_the_cpu():
     seconds = tpuflow_torch.warmup([(3, 24, 32)], methods=(
         "tvl1", "hs", "occflow", "robust_expo", "brox_spatial",
-        "brox_temporal"), device="cpu")
+        "brox_temporal", "brox_batched"), device="cpu")
     assert seconds > 0
     with pytest.raises(ValueError, match="unknown method"):
         tpuflow_torch.warmup([(1, 24, 32)], methods=("tvl2",), device="cpu")

@@ -7,8 +7,9 @@ sm_90a under `tpuflow_torch/csrc/`, built with nvcc at first use
 (tpuflow_torch._build), with a plain PyTorch version beside it that
 runs when the tensors lie on the CPU.
 
-Ported so far: the batched engines `tvl1_batched` and
-`hs_pyramidal_batched` (tpuflow_torch.models.batch) and
+Ported so far: the batched engines `tvl1_batched`,
+`hs_pyramidal_batched` and `brox_spatial_batched`
+(tpuflow_torch.models.batch) and
 `hs_classic_batched` (tpuflow_torch.models.hs_classic); the single-pair
 solvers `tvl1_multiscale`, `hs_pyramidal`, `hs_classic`,
 `brox_spatial`, `robust_expo`, `brox_temporal` (a frame sequence) and
@@ -28,7 +29,8 @@ Inputs are computed in float32 on the card and in their own dtype
 __version__ = "0.1.0"
 
 from tpuflow_torch.config import default_dtype
-from tpuflow_torch.models.batch import hs_pyramidal_batched, tvl1_batched
+from tpuflow_torch.models.batch import (brox_spatial_batched,
+                                       hs_pyramidal_batched, tvl1_batched)
 from tpuflow_torch.models.brox_spatial import brox_spatial
 from tpuflow_torch.models.brox_temporal import brox_temporal
 from tpuflow_torch.models.hs_classic import hs_classic, hs_classic_batched
@@ -38,7 +40,7 @@ from tpuflow_torch.models.tvl1 import tvl1_multiscale
 from tpuflow_torch.models.tvl1occflow import tvl1occflow
 from tpuflow_torch.utils.warmup import warmup
 
-__all__ = ["brox_spatial", "brox_temporal", "default_dtype", "hs_classic",
-           "hs_classic_batched", "hs_pyramidal", "hs_pyramidal_batched",
-           "robust_expo", "tvl1_batched", "tvl1_multiscale", "tvl1occflow",
-           "warmup"]
+__all__ = ["brox_spatial", "brox_spatial_batched", "brox_temporal",
+           "default_dtype", "hs_classic", "hs_classic_batched", "hs_pyramidal",
+           "hs_pyramidal_batched", "robust_expo", "tvl1_batched",
+           "tvl1_multiscale", "tvl1occflow", "warmup"]

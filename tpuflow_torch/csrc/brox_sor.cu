@@ -24,11 +24,12 @@
 // brox_sor_route):
 //
 // (a) "resident": the whole solve in ONE cooperative launch
-//     (cudaLaunchCooperativeKernel), one block per TY x TX tile of the
-//     level per sample, never more blocks than the device can hold at
-//     once.  Each block copies its tile into shared memory once with
-//     cp.async: the 9 constants (Du, Dv turned into rdu, rdv as above)
-//     over the tile, du and dv over the tile and a one-pixel halo.
+//     (cudaLaunchKernelExC with cudaLaunchAttributeCooperative), one
+//     block per TY x TX tile of the level per sample, never more blocks
+//     than the device can hold at once.  Each block copies its tile
+//     into shared memory once with cp.async: the 9 constants (Du, Dv
+//     turned into rdu, rdv as above) over the tile, du and dv over the
+//     tile and a one-pixel halo.
 //     Each sweep: update the tile's red pixels, write its red edge
 //     pixels to `state` (the exchange buffer), grid sync, read the
 //     neighbours' red edges into the halo (ld.global.cg: L1 is not
@@ -391,9 +392,20 @@ extern "C" int brox_sor_solve(float* state, const float* cst, float* partial,
   if (e != cudaSuccess) return (int)e;
   void* args[] = {&state, &cst, &partial, &err, &n, &B, &ny,
                   &nx, &thresh, &max_iter, &alpha};
-  e = cudaLaunchCooperativeKernel((const void*)brox_sor_resident, grid,
-                                  dim3(RT), args, RES_SMEM,
-                                  (cudaStream_t)stream);
+  // cudaLaunchKernelExC with the cooperative attribute is the launch
+  // cudaLaunchCooperativeKernel makes, under the runtime's name of every
+  // other kernel launch, so a trace ties K7 to its launch like the rest
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(RT);
+  cfg.dynamicSmemBytes = RES_SMEM;
+  cfg.stream = (cudaStream_t)stream;
+  cfg.attrs = &coop;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelExC(&cfg, (const void*)brox_sor_resident, args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

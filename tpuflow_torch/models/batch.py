@@ -1,5 +1,5 @@
-"""Batched multiscale TV-L1 and pyramidal Horn-Schunck: the throughput
-paths on the card.
+"""Batched multiscale TV-L1, pyramidal Horn-Schunck and Brox spatial:
+the throughput paths on the card.
 
 Counterpart of the TV-L1 and HS halves of tpuflow/models/batch.py.  Many
 frame pairs run as one batch; every pyramid level runs each warp as TWO
@@ -14,10 +14,15 @@ kernels:
     `hs_sor_error` (K4, csrc/hs_sor.cu), the whole 4-color SOR solve of
     that warp;
 
-each inner solve stopping per sample.  On the card the kernels run at
-every level; on the CPU (device="cpu") their plain PyTorch versions
-run at every level.  The layout is unpadded (B, C, ny, nx), contiguous,
-float32 on the card (float32 or float64 on the CPU).
+each inner solve stopping per sample.  Brox spatial
+(`brox_spatial_batched`, which has no counterpart in the JAX package)
+runs the single-pair solver's own `brox_scale` on the B pairs: per
+outer iteration one K5 or K5p launch for the B stacks of six planes,
+the system's plain ops, and one K7 call for the B SOR solves.  On the
+card the kernels run at every level; on the CPU (device="cpu") their
+plain PyTorch versions run at every level.  The layout is unpadded
+(B, C, ny, nx), contiguous, float32 on the card (float32 or float64 on
+the CPU).
 
 Two stopping modes:
   * stop="error" — the reference CLI's operating point: per-sample
@@ -37,6 +42,11 @@ import torch
 
 from tpuflow_torch._device import compute_inputs
 from tpuflow_torch.config import numpy_dtype
+from tpuflow_torch.models.brox_spatial import (
+    DEFAULT_ALPHA as BROX_ALPHA, DEFAULT_GAMMA as BROX_GAMMA,
+    DEFAULT_INNER as BROX_INNER, DEFAULT_NSCALES as BROX_NSCALES,
+    DEFAULT_OUTER as BROX_OUTER, DEFAULT_TOL as BROX_TOL,
+    DEFAULT_ZFACTOR as BROX_ZFACTOR, MAXITER_SOR, brox_pyramid)
 from tpuflow_torch.models.common import run_pyramid_state
 from tpuflow_torch.models.hs_pyramidal import (DEFAULT_ALPHA, DEFAULT_MAXITER,
                                                DEFAULT_NSCALES, DEFAULT_TOL,
@@ -331,3 +341,42 @@ def hs_pyramidal_batched(I1, I2, alpha=DEFAULT_ALPHA, nscales=None,
     if with_stats:
         return u, v, {"warp_overflow_tiles": oflow, "iterations": iterations}
     return u, v
+
+
+@traced
+def brox_spatial_batched(I1, I2, alpha=BROX_ALPHA, gamma=BROX_GAMMA,
+                         nscales=BROX_NSCALES, zfactor=BROX_ZFACTOR,
+                         tol=BROX_TOL, inner_iter=BROX_INNER,
+                         outer_iter=BROX_OUTER, stop="error",
+                         maxiter=MAXITER_SOR, clamp_scales=True,
+                         warp_mode="auto", max_motion=8, with_stats=False,
+                         device=None):
+    """Batched multiscale Brox spatial flow: (B, H, W) pairs -> (B, H, W)
+    flows, each sample `brox_spatial` of its pair (reference
+    src/brox_optic_flow_spatial.cpp), with its arguments, defaults and
+    devices.
+
+    Every SOR solve stops per sample at sqrt(err / (ny * nx)) <= tol
+    (or `maxiter` sweeps); no sample waits for another, and every
+    sample runs every outer iteration, as the reference does.
+
+    `with_stats=True` returns (u, v, stats): stats["iterations"],
+    {scale: per-solve lists (outer-major over the outer and inner
+    iterations) of per-sample SOR sweeps}, read on the host once a
+    level."""
+    if len(I1.shape) != 3:
+        raise ValueError(f"brox_spatial_batched takes (B, H, W) stacks, got "
+                         f"{tuple(I1.shape)}")
+    diags = {}
+    u, v = brox_pyramid(
+        I1, I2, alpha, gamma, nscales, zfactor, tol, inner_iter, outer_iter,
+        stop, maxiter, clamp_scales, warp_mode, max_motion, device,
+        diags.__setitem__ if with_stats else None)
+    if not with_stats:
+        return u, v
+    iterations = {}
+    for scale, diag in diags.items():
+        its = diag["iterations"]
+        count("host_reads")
+        iterations[scale] = its.reshape(its.shape[0], -1).T.tolist()
+    return u, v, {"iterations": iterations}

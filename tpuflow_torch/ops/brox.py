@@ -47,7 +47,7 @@ import torch.nn.functional as F
 from tpuflow_torch import _build
 from tpuflow_torch.ops.hs import D_FLOOR
 from tpuflow_torch.ops.sweeps import check_state_const, run_until_stopped
-from tpuflow_torch.utils.trace import count
+from tpuflow_torch.utils.trace import count, span
 
 SOR_OMEGA = 1.9  # reference src/brox_optic_flow_spatial.cpp:25
 
@@ -178,7 +178,8 @@ def device_route(B, ny, nx, device=None):
 
 
 def _solve_resident(state, const, thresh, max_iter, alpha):
-    """Route "resident" on CUDA tensors: one cooperative launch."""
+    """Route "resident" on CUDA tensors: one cooperative launch, in a
+    span `solve` as route "stream"'s loop is."""
     B, _, ny, nx = state.shape
     dev = state.device
     err = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
@@ -186,7 +187,7 @@ def _solve_resident(state, const, thresh, max_iter, alpha):
     partial = torch.empty(2 * B * tile_count(ny, nx), dtype=torch.float32,
                           device=dev)
     lib = _library()
-    with torch.cuda.device(dev):
+    with span("solve"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         count("calls.brox_sor_error.resident")
         _build.check(lib.brox_sor_solve(
@@ -213,10 +214,12 @@ def brox_sor_error(state, const, thresh, max_iter, alpha):
     state: (B, 2, ny, nx) = (du, dv) float32 contiguous, updated in place;
     const: (B, 9, ny, nx) = (Au, Av, Du, Dv, D, psi1, psi2, psi3, psi4)
     float32 contiguous; thresh, max_iter, alpha: Python scalars.
-    Returns (state, err (B,) float32, n (B,) int32)."""
+    Returns (state, err (B,) float32, n (B,) int32).  A solve is one
+    span `solve` on every route, the plain version's too."""
     check_state_const(state, const, 2, 9)
     if state.device.type == "cpu":
-        return brox_sor_error_plain(state, const, thresh, max_iter, alpha)
+        with span("solve"):
+            return brox_sor_error_plain(state, const, thresh, max_iter, alpha)
     if state.device.type != "cuda":
         raise ValueError(f"unsupported device {state.device}")
     B, _, ny, nx = state.shape

@@ -27,7 +27,7 @@ from tpuflow_torch._device import resolve_device
 from tpuflow_torch.data import synth_pair, synth_sequence
 
 METHODS = ("tvl1", "hs", "occflow", "robust_expo", "brox_spatial",
-           "brox_temporal")
+           "brox_temporal", "brox_batched")
 
 
 def _pairs(B, ny, nx):
@@ -36,14 +36,17 @@ def _pairs(B, ny, nx):
 
 
 def _run(method, B, ny, nx, device):
-    """One call of `method` at the CLI defaults on B pairs (tvl1, hs),
-    B frames (brox_temporal) or one pair or triplet (the others)."""
+    """One call of `method` at the CLI defaults on B pairs (tvl1, hs,
+    brox_batched), B frames (brox_temporal) or one pair or triplet (the
+    others)."""
     import tpuflow_torch as T
 
     if method == "tvl1":
         return T.tvl1_batched(*_pairs(B, ny, nx), device=device)
     if method == "hs":
         return T.hs_pyramidal_batched(*_pairs(B, ny, nx), device=device)
+    if method == "brox_batched":
+        return T.brox_spatial_batched(*_pairs(B, ny, nx), device=device)
     if method == "brox_temporal":
         return T.brox_temporal(synth_sequence(B, ny, nx), device=device)
     I0, I1 = synth_pair(ny, nx)
@@ -61,14 +64,14 @@ def warmup(geometries=((16, 436, 1024),), methods=("tvl1", "hs"),
     """Build the kernels and run each of `methods` once per (B, H, W)
     geometry; returns the wall seconds spent.
 
-    methods: any of "tvl1" and "hs" (the batched engines, B pairs),
-    "occflow", "robust_expo" and "brox_spatial" (one pair or triplet, B
-    ignored) and "brox_temporal" (the geometry's B slot is the FRAME
-    count).  `timeout`: the wall seconds after which no further call
-    starts; each skipped (method, B, H, W) job is printed on stderr,
-    then their count, and nothing raises.  `device` defaults to the
-    card; with no card the call raises.  `verbose` prints each call's
-    seconds.
+    methods: any of "tvl1", "hs" and "brox_batched" (the batched
+    engines, B pairs), "occflow", "robust_expo" and "brox_spatial" (one
+    pair or triplet, B ignored) and "brox_temporal" (the geometry's B
+    slot is the FRAME count).  `timeout`: the wall seconds after which
+    no further call starts; each skipped (method, B, H, W) job is
+    printed on stderr, then their count, and nothing raises.  `device`
+    defaults to the card; with no card the call raises.  `verbose`
+    prints each call's seconds.
 
         import tpuflow_torch
         tpuflow_torch.warmup([(16, 436, 1024), (1, 436, 1024)])
