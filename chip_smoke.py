@@ -20,8 +20,10 @@ then runs these phases, each printing one JSON line:
      436x1024 and 100 at 109x257 (no tile divides it).  K7 (brox_sor)
      at the five Brox levels of 1024x436, B=1 (its route "resident"),
      and at B=2 x 436x1024 (its route "stream"), each check naming its
-     route.  K7 solves the system that `brox_scale` assembles from the
-     synthetic flow.  K5 (warp_planes) and K5p (warp_planes_shift, with
+     route.  K7 solves the system that `brox_scale` assembles (K9) from
+     the synthetic flow.  K9 (brox_terms) at the five Brox levels, B=128
+     and B=1, on the first inner iteration (a nonzero state it must not
+     read) and a later one, each plane within 1e-5 of its scale.  K5 (warp_planes) and K5p (warp_planes_shift, with
      border_out on and off) warp Brox's six derivative planes at each of
      the five Brox levels with its dmax, at level 0 also 3 planes (K5p
      without border_out: tvl1occflow's level 0) and 18 (robust-expo
@@ -70,7 +72,8 @@ then runs these phases, each printing one JSON line:
   4. `brox_spatial_batched` on the B=128 timing pairs at the reference
      CLI defaults: each level's K7 route as `brox_sor_route` gives it on
      the card (15 calls a level), its K5 or K5p launches (15 a level),
-     K7's sweeps launched against what the stats imply, the call's
+     K7's sweeps launched against what the stats imply, 15 K9 calls a
+     level (75 a call), the call's
      seconds and peak memory, and samples 0, 1, 63 and 127 against
      `brox_spatial` on their pairs (EPE <= 0.01);
   5. timing at the benchmark geometry: the batched engines at B=128
@@ -90,7 +93,8 @@ then runs these phases, each printing one JSON line:
      CUDA events (`graph_ms`), the profiler's median beside them; K5 and
      K5p at every shape where the main paths launch them, with both plane
      counts a thread may take (K5 also at B = 8, Brox temporal's level
-     0).  A kernel read below its bound fails the run.  Then K8 (the
+     0), and K9 at level 0 at B=128 by graph against its bytes bound (at
+     most 3 times it).  A kernel read below its bound fails the run.  Then K8 (the
      pyramid, `check_pyramid`) on the B=128 timing pairs against the
      plain pyramid on the card: every level of both images bit for bit
      at zfactor 0.5 and within 1e-4 at 0.75, one launch a level, and its
@@ -169,6 +173,16 @@ K3_PLANES = 6 + 5   # reads I2, I2x, I2y, u, v, I1; writes 5 constants
 K4_PLANES = 7 + 2   # reads u, v + 5 constant planes; writes u, v
 K6_PLANES = 3 + 2   # one call reads Ex, Ey, Et; writes u, v
 K7_PLANES = 11 + 2  # reads du, dv + 9 constant planes; writes du, dv
+# K9 at the first inner iteration reads u, v, I1, I1x, I1y and the six
+# warped planes and writes the 9 constants; later ones also read du, dv.
+# Its f32 operations per pixel, counted from csrc/brox_terms.cu (a square
+# root and a division one each): psi_s 18, psi1..psi4 8, the divergences
+# 26, the data terms and the constants 65
+K9_PLANES_FIRST = 11 + 9
+K9_PLANES_LATER = 13 + 9
+K9_FLOPS_PX = 117
+# K9 at level 0, B=128, may take at most this many times its bytes bound
+K9_X_BOUND = 3.0
 B_CHECK, B_TIME = 4, 128
 SEED0 = 100
 # TV-L1 (l_t, theta, taut) at the CLI defaults; HS and classic alpha
@@ -562,6 +576,112 @@ def brox_system(dev, ny, nx, dmax, batch=1):
     return state.contiguous(), const.contiguous(), thresh, alpha
 
 
+def brox_terms_case(dev, ny, nx, dmax, batch):
+    """K9's inputs (u, v, I1, I1x, I1y, warped, state) at one Brox level
+    for `batch` samples: `brox_inputs`' pair at (ny, nx), sample k's flow
+    the synthetic flow times 1 - k / (2 batch), the six planes warped by
+    it as the solver warps them (K5 or K5p), and an increment of a
+    tenth of the flow in the state."""
+    from tpuflow_torch.ops.gradients import centered_gradient
+    from tpuflow_torch.ops.interp import warp_by_mode
+
+    I1, _, planes, u, v = brox_inputs(dev, ny, nx)
+    k = torch.arange(batch, dtype=torch.float32, device=dev)[:, None, None]
+    u, v = u * (1 - k / (2 * batch)), v * (1 - k / (2 * batch))
+    warped = warp_by_mode(planes.repeat(batch, 1, 1, 1), u, v, "fast", dmax)
+    I1 = I1.repeat(batch, 1, 1)
+    I1x, I1y = centered_gradient(I1)
+    state = (0.1 * torch.stack([u, v], dim=1)).contiguous()
+    return u, v, I1, I1x, I1y, warped.contiguous(), state
+
+
+def check_brox_terms(dev):
+    """K9 (`brox_terms`) against its plain version on the card at every
+    Brox level of 1024x436, for B_TIME samples and for one, on the first
+    inner iteration (the state holds a nonzero increment that K9 must
+    not read) and on a later one: each of the nine planes within 1e-5 of
+    its scale (the kernel rounds every operation as the plain version
+    does, so they should agree bit for bit), one launch a call; and a
+    CUDA float64 call refused with a ValueError."""
+    from tpuflow_torch.models.brox_spatial import DEFAULT_ALPHA, DEFAULT_GAMMA
+    from tpuflow_torch.ops.brox_terms import brox_terms, brox_terms_plain
+
+    out = []
+    for s, (nx, ny) in enumerate(brox_levels()):
+        for batch in (B_TIME, 1):
+            args = brox_terms_case(dev, ny, nx, brox_dmax(s), batch)
+            for first in (True, False):
+                reset()
+                got = brox_terms(*args, torch.empty((batch, 9, ny, nx),
+                                                    device=dev),
+                                 DEFAULT_ALPHA, DEFAULT_GAMMA, first)
+                launches = since_reset("calls.brox_terms")
+                ref = brox_terms_plain(*args, torch.empty_like(got),
+                                       DEFAULT_ALPHA, DEFAULT_GAMMA, first)
+                torch.cuda.synchronize()
+                rel, err = rel_err(got, ref)
+                c = {"shape": [batch, ny, nx], "first": first,
+                     "launches": launches, "max_abs_err": err,
+                     "max_rel_err": rel, "bit_equal": bool(torch.equal(got, ref)),
+                     "finite": bool(torch.isfinite(got).all())}
+                out.append(c)
+                if not (rel <= 1e-5 and launches == 1 and c["finite"]):
+                    raise AssertionError(f"brox_terms disagrees with its "
+                                         f"plain version: {c}")
+                del got, ref
+            del args
+    u, v, I1, I1x, I1y, warped, state = brox_terms_case(dev, 28, 64, 3, 2)
+    try:
+        brox_terms(*(t.double() for t in (u, v, I1, I1x, I1y, warped, state)),
+                   torch.empty((2, 9, 28, 64), dtype=torch.float64, device=dev),
+                   DEFAULT_ALPHA, DEFAULT_GAMMA, True)
+        refused = False
+    except ValueError:
+        refused = True
+    out.append({"float64_refused": refused})
+    if not refused:
+        raise AssertionError("brox_terms: a CUDA float64 call ran")
+    return out
+
+
+def brox_terms_timing(dev):
+    """K9 at level 0 of B_TIME 1024x436 pairs, the cell's shape: one launch
+    on the first inner iteration and on a later one, by `graph_ms` (the
+    inputs are 20 times the L2, so it is not flushed), with the
+    profiler's median beside it, against the bytes each moves; the
+    state's zero fill that precedes it in a span `terms`; and the plain
+    version's device time (CUDA events: its ~60 ops a call are
+    device-bound at this size).  Fails above K9_X_BOUND times the bound
+    or below the bound."""
+    from tpuflow_torch.data import NX, NY
+    from tpuflow_torch.models.brox_spatial import DEFAULT_ALPHA, DEFAULT_GAMMA
+    from tpuflow_torch.ops.brox_terms import brox_terms, brox_terms_plain
+
+    args = brox_terms_case(dev, NY, NX, BROX_DMAX0, B_TIME)
+    const = torch.empty((B_TIME, 9, NY, NX), device=dev)
+    state = args[-1]
+    px = B_TIME * NY * NX
+
+    def k9(first):
+        return brox_terms(*args, const, DEFAULT_ALPHA, DEFAULT_GAMMA, first)
+
+    k = {"unit": f"one launch, B={B_TIME} at {NX}x{NY} (level 0)"}
+    k["ms"] = graph_ms(lambda: k9(True), 10, False)
+    k["profiler_ms"], k["profiler_us"] = device_ms(
+        lambda: k9(True), 10, {"brox_terms_kernel": 1}, flush_l2=False)
+    k["bound_ms"], k["bound_by"] = bound_ms(px, K9_PLANES_FIRST, K9_FLOPS_PX)
+    k["x_bound"] = k["ms"] / k["bound_ms"]
+    k["later_ms"] = graph_ms(lambda: k9(False), 10, False)
+    k["later_bound_ms"] = bound_ms(px, K9_PLANES_LATER, K9_FLOPS_PX)[0]
+    k["state_fill_ms"] = graph_ms(lambda: torch.zeros_like(state), 10, False)
+    k["plain_ms"] = time_ms(lambda: brox_terms_plain(
+        *args, const, DEFAULT_ALPHA, DEFAULT_GAMMA, True), 3)
+    if not k["bound_ms"] <= k["ms"] <= K9_X_BOUND * k["bound_ms"]:
+        raise AssertionError(f"brox_terms at level 0 outside [1, "
+                             f"{K9_X_BOUND}] times its bound: {k}")
+    return k
+
+
 def check_brox_sor(dev, ny, nx, dmax, batch=1):
     """K7 against its plain version on a Brox system, naming the route
     the wrapper takes: 8 fixed sweeps, then stop="error" at the solver's
@@ -648,6 +768,7 @@ def plain_versions():
     rexpo = importlib.import_module("tpuflow_torch.models.robust_expo")
     import tpuflow_torch.ops.interp as interp
     from tpuflow_torch.ops.brox import brox_sor_error_plain
+    from tpuflow_torch.ops.brox_terms import brox_terms_plain
     from tpuflow_torch.ops.gaussian import gaussian_plain
     from tpuflow_torch.ops.hs import hs_sor_error_plain
     from tpuflow_torch.ops.hs_classic import hs_classic_fused_plain
@@ -661,6 +782,7 @@ def plain_versions():
                   (classic, "hs_classic_fused", hs_classic_fused_plain),
                   (interp, "warp_planes_uv", _warp_uv_plain),
                   (brox, "brox_sor_error", brox_sor_error_plain),
+                  (brox, "brox_terms", brox_terms_plain),
                   (common, "build_pyramid", common.build_pyramid_plain),
                   (temporal, "gaussian", gaussian_plain),
                   (rexpo, "gaussian", gaussian_plain)]):
@@ -935,8 +1057,9 @@ def batched_brox_path(dev, counters, I0, I1):
     (expected: "stream" at levels 0-3, "resident" at level 4), 15 warp
     launches (K5 at levels of at least 96x96 px, K5p below), and K7's
     `iters.k7` the sweeps the stats imply (route "stream" rounds each
-    solve's slowest sample up to CHECK_EVERY); then a few samples
-    against `brox_spatial` on their pairs (BATCHED_BROX_EPE)."""
+    solve's slowest sample up to CHECK_EVERY), 15 K9 calls a level (75 a
+    call); then a few samples against `brox_spatial` on their pairs
+    (BATCHED_BROX_EPE)."""
     from tpuflow_torch import brox_spatial, brox_spatial_batched
     from tpuflow_torch.ops.brox import device_route
     from tpuflow_torch.ops.interp import K5_MIN_PIXELS
@@ -961,6 +1084,8 @@ def batched_brox_path(dev, counters, I0, I1):
                          - before.get(f"calls.brox_sor_error.{r}", 0)
                          for r in K7_ROUTES},
             "iters_k7": after.get("iters.k7", 0) - before.get("iters.k7", 0),
+            "k9_calls": (after.get("calls.brox_terms", 0)
+                         - before.get("calls.brox_terms", 0)),
             "warps": {k: after.get(k, 0) - before.get(k, 0)
                       for k in after if k.startswith("calls.warp_planes")
                       and after.get(k, 0) != before.get(k, 0)}})
@@ -987,6 +1112,7 @@ def batched_brox_path(dev, counters, I0, I1):
                              for r in K7_ROUTES},
                 "iters_k7": (lv["sweeps_launched"]
                              if lv["route_expected"] == "stream" else 0),
+                "k9_calls": 15,
                 "warps": {f"calls.{kernel.__name__}.g{group}": 15}}
         if any(lv[k] != w for k, w in want.items()):
             wrong.append((s, want))
@@ -999,9 +1125,9 @@ def batched_brox_path(dev, counters, I0, I1):
            "launches": launches, "levels": {str(s): lv
                                              for s, lv in levels.items()},
            "epe_vs_pair": pairs_epe}
-    if wrong:
-        raise AssertionError(f"batched Brox: routes, K7 sweeps or warps "
-                             f"{wrong}: {out}")
+    if wrong or launches["brox_terms"] != 15 * len(levels):
+        raise AssertionError(f"batched Brox: routes, K7 sweeps, K9 calls or "
+                             f"warps {wrong}: {out}")
     if not all(e <= BATCHED_BROX_EPE for e in pairs_epe.values()):
         raise AssertionError(f"batched Brox: samples far from their pair "
                              f"calls: {out}")
@@ -1740,7 +1866,9 @@ def sequence_clis(dev, counters, tmp, mains):
 
 
 def main_path_cli(dev, counters, per_pair, mains):
-    """The seven CLIs at 1024x436 through the kernels.  The five
+    """The seven CLIs at 1024x436 through the kernels (`per_pair`: the
+    launches of the brox_spatial and robust_expo CLIs by wrapper, under
+    those names).  The five
     two-frame CLIs (tvl1flow and horn_schunck_pyramidal also verbose,
     tvl1flow also on gray PNG): per run the launches (counts set to 0
     just before it; K5's and K5p's per group too), the .flo against the
@@ -1802,9 +1930,11 @@ def main_path_cli(dev, counters, per_pair, mains):
                                                          CLASSIC_ALPHA),
                                  {hs_classic_fused: 1}),
         "brox_spatial": (brox_cli, ["I0.pfm", "I1.pfm"], gray,
-                         lambda a, b: brox_spatial(a, b), per_pair),
+                         lambda a, b: brox_spatial(a, b),
+                         per_pair["brox_spatial"]),
         "robust_expo_methods": (robust_cli, ["I0.png", "I1.png"], rgb_planes,
-                                lambda a, b: robust_expo(a, b), per_pair),
+                                lambda a, b: robust_expo(a, b),
+                                per_pair["robust_expo"]),
     }
     groups_expected = pair_warp_groups()
     out = {}
@@ -1860,6 +1990,7 @@ CLASSIC_GROUPS = (("hs_classic_block", "K6 hs_classic"),)
 SEQUENCE_GROUPS = (("warp_planes_kernel", "K5/K5p warp_planes"), K8_GROUP,
                    ("gemm", "zoom_in matmul"))
 BROX_GROUPS = (("warp_planes_kernel", "K5/K5p warp_planes"),
+               ("brox_terms_kernel", "K9 brox_terms"),
                ("brox_sor_resident", "K7 brox_sor"),
                ("brox_sor_color", "K7 brox_sor"),
                ("stop_finalize", "K7 brox_sor"), K8_GROUP,
@@ -2783,6 +2914,7 @@ def main():
                                robust_expo, tvl1_batched, tvl1occflow)
     from tpuflow_torch.data import NX, NY, synth_sequence
     from tpuflow_torch.ops.brox import brox_sor_error
+    from tpuflow_torch.ops.brox_terms import brox_terms
     from tpuflow_torch.ops.hs import hs_sor_error
     from tpuflow_torch.ops.hs_classic import hs_classic_fused
     from tpuflow_torch.ops.interp import K5_MIN_PIXELS
@@ -2844,6 +2976,9 @@ def main():
         "brox_sor_error": [check_brox_sor(dev, ny, nx, brox_dmax(s))
                            for s, (nx, ny) in enumerate(brox_levels())]
                           + [check_brox_sor(dev, NY, NX, BROX_DMAX0, 2)],
+        # every Brox level at B_TIME and B=1, first and later inner
+        # iteration
+        "brox_terms": check_brox_terms(dev),
     }
     for name, c in checks.items():
         emit(phase=f"{name}_vs_plain", checks=c)
@@ -2853,7 +2988,7 @@ def main():
 
     counters = (warp_const_batched, tvl1_iterate_error, warp_const_hs_batched,
                 hs_sor_error, warp_planes_batched, warp_planes_shift_batched,
-                hs_classic_fused, brox_sor_error)
+                hs_classic_fused, brox_sor_error, brox_terms)
     paths = {
         "tvl1": main_path(dev, counters, tvl1_batched,
                           (warp_const_batched, tvl1_iterate_error), 0.5,
@@ -2879,22 +3014,27 @@ def main():
     # the single-pair solvers at the reference CLI defaults: 5 levels at
     # 1024x436 (clamped on min(nx, ny)), 15 outer x 1 inner iterations,
     # one warp launch and one K7 call per outer iteration; the warp is K5
-    # on levels of at least 96x96 px (0-2), K5p below (3-4): 45 + 30, 75
+    # on levels of at least 96x96 px (0-2), K5p below (3-4): 45 + 30, 75;
+    # Brox spatial's system is K9, one launch per K7 call (75), robust-
+    # expo forms its own
     levels = brox_levels()
     big = sum(nx * ny >= K5_MIN_PIXELS for nx, ny in levels)
     per_pair = {warp_planes_batched: 15 * big,
                 warp_planes_shift_batched: 15 * (len(levels) - big),
                 brox_sor_error: 15 * len(levels)}
+    per_pair = {"brox_spatial": {**per_pair, brox_terms: 15 * len(levels)},
+                "robust_expo": {**per_pair, brox_terms: 0}}
     # and each level's warps with the planes a thread of K5 or K5p warps
     # there
     warp_groups = pair_warp_groups()
     # the card gave EPE 0.0122 (Brox) and 0.0355 (robust-expo) against
     # the synthetic flow on an H100; 0.1 leaves room, as for HS
     paths["brox_spatial"] = pair_main_path(dev, counters, brox_spatial, 0.1,
-                                           per_pair, warp_groups)
+                                           per_pair["brox_spatial"],
+                                           warp_groups)
     paths["robust_expo"] = pair_main_path(dev, counters, robust_expo, 0.1,
-                                          per_pair, warp_groups,
-                                          method_type=1)
+                                          per_pair["robust_expo"],
+                                          warp_groups, method_type=1)
     # the multi-frame solvers at the reference CLI defaults: Brox
     # temporal on 9 frames (8 fields, 12 levels at zfactor 0.75), TV-L1
     # with occlusions on one triplet (5 levels, 2 warps)
@@ -2955,6 +3095,8 @@ def main():
     lvl0_pair = level0_brox(dev)
     emit(phase="level0_kernels", batch=1, shape=[NY, NX], **lvl0_pair)
     lvl0.update(lvl0_pair)
+    lvl0["brox_terms"] = brox_terms_timing(dev)
+    emit(phase="brox_terms_timing", **lvl0["brox_terms"])
     warps = warp_timing(dev)
     emit(phase="warp_planes_timing", **warps)
     lvl0.update(warps)
@@ -2980,7 +3122,7 @@ def main():
                "hs_classic_fused": "hs_classic",
                "warp_planes_batched": "brox_spatial",
                "warp_planes_shift_batched": "brox_spatial",
-               "brox_sor_error": "brox_spatial"}
+               "brox_sor_error": "brox_spatial", "brox_terms": "brox_spatial"}
     sources = {
         "warp_const_batched": ("warp_const.cu", "warp_pallas.py:90", "max_abs_err"),
         "tvl1_iterate_error": ("tvl1_iterate.cu", "tvl1_pallas.py:61",
@@ -2996,6 +3138,9 @@ def main():
                                       "max_abs_err"),
         "brox_sor_error": ("brox_sor.cu", "brox_pallas.py:50",
                            "fixed8_max_abs_err"),
+        # K9 replaces no Pallas kernel: the JAX package leaves the
+        # system's assembly to XLA
+        "brox_terms": ("brox_terms.cu", None, "max_abs_err"),
     }
     kernels, below = [], []
     for fn in counters:
@@ -3005,9 +3150,10 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tpuflow_torch/csrc/{src}",
-            "replaces": f"tpuflow/ops/{tpu}",
+            "replaces": tpu and f"tpuflow/ops/{tpu}",
             "launches": paths[path_of[name]]["launches"][name],
-            "max_abs_err": max(c[err_key] for c in checks[name]),
+            "max_abs_err": max(c[err_key] for c in checks[name]
+                               if err_key in c),
             "ms": k["ms"], "plain_ms": k["plain_ms"],
             "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
             # no single PyTorch call computes any of these functions

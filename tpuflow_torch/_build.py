@@ -26,7 +26,7 @@ BUILD_DIR = CSRC.parent.parent / "build" / "tpuflow_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 KERNELS = ("warp_const", "warp_planes", "tvl1_iterate", "hs_sor",
-           "hs_classic", "brox_sor", "pyramid")
+           "hs_classic", "brox_sor", "pyramid", "brox_terms")
 
 _loaded = {}
 

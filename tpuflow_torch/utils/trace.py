@@ -18,6 +18,7 @@ them all.  Names say what they count:
                     (`calls.tvl1_iterate_error`, `calls.hs_sor_error`,
                     `calls.hs_classic_fused`,
                     `calls.brox_sor_error.{resident,stream}`,
+                    `calls.brox_terms`,
                     `calls.warp_planes[_shift]_batched.g{6,3}`, the
                     planes a thread warps)
   spans.dropped     spans pushed out of the full buffer
