@@ -274,12 +274,17 @@ def rel_err(got, ref):
 
 def check_warp(dev, ny, nx, dmax, mode):
     """K1 (mode "tvl1") or K3 ("hs") against the plain version."""
-    from tpuflow_torch.ops.warp import warp_const_batched, warp_const_plain
+    from tpuflow_torch.ops.warp import (warp_const_batched,
+                                        warp_const_hs_batched,
+                                        warp_const_plain)
 
     planes, state, aux, _ = kernel_inputs(*pairs(B_CHECK, ny, nx, dev), dev,
                                           dmax, mode)
     uv = state[:, :2]
-    got, oflow = warp_const_batched(planes, uv, aux, dmax, mode, HS_ALPHA2)
+    if mode == "hs":
+        got, oflow = warp_const_hs_batched(planes, uv, aux, dmax, HS_ALPHA2)
+    else:
+        got, oflow = warp_const_batched(planes, uv, aux, dmax)
     ref, _ = warp_const_plain(planes, uv, aux, dmax, mode, HS_ALPHA2)
     torch.cuda.synchronize()
     rel, err = rel_err(got, ref)
@@ -740,21 +745,6 @@ def _warp_hs_plain(planes, uv, aux, dmax, alpha2):
     return warp_const_plain(planes, uv, aux, dmax, "hs", alpha2)
 
 
-def _warp_uv_plain(planes, u, v, dmax, shift=False, border_out=True):
-    from tpuflow_torch.ops.warp import (warp_planes_plain,
-                                        warp_planes_shift_plain)
-
-    single = planes.ndim == 3
-    if single:
-        planes, u, v = planes[None], u[None], v[None]
-    uv = torch.stack([u, v], dim=1)
-    if shift:
-        out = warp_planes_shift_plain(planes, uv, dmax, border_out)[0]
-    else:
-        out = warp_planes_plain(planes, uv, dmax)[0]
-    return out[0] if single else out
-
-
 @contextlib.contextmanager
 def plain_versions():
     """Run the engines through the kernels' plain versions (on whatever
@@ -773,14 +763,14 @@ def plain_versions():
     from tpuflow_torch.ops.hs import hs_sor_error_plain
     from tpuflow_torch.ops.hs_classic import hs_classic_fused_plain
     from tpuflow_torch.ops.tvl1 import tvl1_iterate_error_plain
-    from tpuflow_torch.ops.warp import warp_const_plain
+    from tpuflow_torch.ops.warp import warp_const_plain, warp_planes_uv_plain
 
     with swapped([(batch, "warp_const_batched", warp_const_plain),
                   (batch, "tvl1_iterate_error", tvl1_iterate_error_plain),
                   (batch, "warp_const_hs_batched", _warp_hs_plain),
                   (batch, "hs_sor_error", hs_sor_error_plain),
                   (classic, "hs_classic_fused", hs_classic_fused_plain),
-                  (interp, "warp_planes_uv", _warp_uv_plain),
+                  (interp, "warp_planes_uv", warp_planes_uv_plain),
                   (brox, "brox_sor_error", brox_sor_error_plain),
                   (brox, "brox_terms", brox_terms_plain),
                   (common, "build_pyramid", common.build_pyramid_plain),
@@ -2522,10 +2512,11 @@ def warp_vs_plain(warp, shift, border_out=True):
     """K5 (shift False) or K5p on a warp `first_warp` kept, against its
     plain version on the same inputs."""
     import tpuflow_torch.ops.interp as interp
+    from tpuflow_torch.ops.warp import warp_planes_uv_plain
 
     planes, u, v, dmax = warp[:4]
     got = interp.warp_planes_uv(planes, u, v, dmax, shift, border_out)
-    ref = _warp_uv_plain(planes, u, v, dmax, shift, border_out)
+    ref = warp_planes_uv_plain(planes, u, v, dmax, shift, border_out)
     rel, err = rel_err(got[None], ref[None])
     return {"shape": list(planes.shape), "dmax": dmax,
             "border_out": border_out, "max_abs_err": err,

@@ -28,8 +28,7 @@ from tpuflow_torch.models.hs_pyramidal import _four_colors, _sor_sweep
 from tpuflow_torch.ops.hs import hs_sor_error, hs_sor_error_plain
 from tpuflow_torch.ops.hs_classic import hs_classic_fused, hs_classic_fused_plain
 from tpuflow_torch.ops.interp import warp_planes
-from tpuflow_torch.ops.warp import (warp_const_batched, warp_const_hs_batched,
-                                    warp_const_plain)
+from tpuflow_torch.ops.warp import warp_const_hs_batched, warp_const_plain
 
 torch.set_num_threads(2)
 
@@ -89,8 +88,8 @@ def test_warp_const_hs_matches_pallas(inputs, jax_const):
     assert oflow == 0
     assert const.dtype == torch.float32 and const.shape == (B, 5, NY, NX)
     assert _rel_err(const.numpy(), jax_const).max() <= 1e-5
-    # mode="hs" of the K1 entry is the same function
-    same, _ = warp_const_batched(*args, DMAX, mode="hs", alpha2=ALPHA2)
+    # on the CPU the wrapper is the plain version in mode "hs"
+    same, _ = warp_const_plain(*args, DMAX, "hs", ALPHA2)
     assert torch.equal(same, const)
 
 
@@ -119,8 +118,6 @@ def test_warp_const_hs_matches_exact_warp(inputs):
 
 def test_warp_const_rejects_bad_input(inputs):
     planes, uv, aux = map(torch.from_numpy, inputs)
-    with pytest.raises(ValueError, match="unknown mode"):
-        warp_const_batched(planes, uv, aux, DMAX, mode="brox")
     with pytest.raises(ValueError, match="unknown mode"):
         warp_const_plain(planes, uv, aux, DMAX, mode="brox")
     meta = [t.to("meta") for t in (planes, uv, aux)]

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from tpuflow_torch._device import on_card
 from tpuflow_torch.models.common import build_pyramid, build_pyramid_plain
 from tpuflow_torch.ops import pyramid as pyr
 from tpuflow_torch.ops import pyramid_level as pl
@@ -215,7 +216,7 @@ def case_cpu_plain():
     assert torch.equal(tgauss.gaussian(images[0], 0.8),
                        tgauss.gaussian_plain(images[0], 0.8))
     assert counters().get("launches.k8", 0) == before
-    assert not pl.on_card(images[0])
+    assert not on_card(images[0])
 
 
 def case_route():
@@ -230,7 +231,7 @@ def case_route():
                            (torch.float16, "float32"),
                            (torch.float32, "unsupported device meta")):
         t = torch.empty((2, 24, 40), dtype=dtype, device="meta")
-        assert pl.on_card(t)
+        assert on_card(t)
         for call in calls:
             with pytest.raises(ValueError, match=message):
                 call(t)

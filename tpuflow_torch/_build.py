@@ -7,7 +7,8 @@ library with a plain C interface and loaded with `ctypes`:
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
 The build happens at first use, only ever from a wrapper that was
-handed a CUDA tensor (the CPU path never needs `nvcc`).  Libraries go
+handed a CUDA tensor (the CPU path never needs `nvcc`).  Every wrapper
+calls its entry points through `launch`.  Libraries go
 to `build/tpuflow_torch/` beside the package, named by a hash of the
 source, the shared headers (`csrc/*.cuh`) and the flags, so an edited
 source rebuilds and an unchanged one loads at once.
@@ -20,6 +21,8 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "tpuflow_torch"
@@ -107,8 +110,19 @@ def load(name, signatures, geometry=None):
     return lib
 
 
-def check(status, what):
-    """Raise if a C entry point returned a CUDA error code."""
+def launch(lib, entry, *args, device, stream=True):
+    """Call C entry point `entry` of library `lib` on CUDA device
+    `device` (a torch.device): a tensor passes as its data_ptr(), None as
+    a null pointer, anything else as it is, and the device's current
+    stream last (unless not `stream`: an entry that launches nothing).
+    Raises if the entry returns a CUDA error code.  The stream is read as
+    PyTorch's compiled code reads it for its own launches, without a
+    Python stream object: this runs on every launch."""
+    args = [a.data_ptr() if type(a) is torch.Tensor else a for a in args]
+    with torch.cuda.device(device):
+        if stream:
+            args.append(torch._C._cuda_getCurrentRawStream(device.index))
+        status = getattr(lib, entry)(*args)
     if status != 0:
-        raise RuntimeError(f"tpuflow_torch: {what} failed with CUDA error "
+        raise RuntimeError(f"tpuflow_torch: {entry} failed with CUDA error "
                            f"{status}")

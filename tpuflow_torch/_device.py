@@ -1,8 +1,11 @@
-"""Device selection for the port's entry points.
+"""Device selection for the port's entry points, and what the
+hand-written kernels take.
 
 The port runs on the card unless the caller asks for the CPU: there is
 no silent fallback, so a run that meant to measure the card cannot end
-up timing PyTorch's CPU kernels.
+up timing PyTorch's CPU kernels.  A kernel's wrapper runs its plain
+version for a CPU tensor and its kernel for any other (`on_card`), after
+`check_inputs` has held its inputs to what the two take.
 """
 
 import warnings
@@ -45,12 +48,75 @@ def compute_inputs(device, *arrays):
     return tuple(t.to(dtype) for t in tensors)
 
 
-def check_dtype(name, t, ref):
-    """Raise unless tensor `t` has the dtype of `ref`: float32 where
-    `ref` lies on the card (every kernel computes in float32), float32
-    or float64 on the CPU (the plain versions follow their inputs)."""
-    allowed = ((torch.float32,) if ref.device.type == "cuda"
-               else (torch.float32, torch.float64))
-    if t.dtype not in allowed or t.dtype != ref.dtype:
-        raise TypeError(f"{name} must be {ref.dtype} and one of {allowed} on "
-                        f"{ref.device.type}, got {t.dtype}")
+def on_card(t):
+    """The one rule for kernel or plain version: False for a CPU tensor,
+    which runs the plain version; True for any other, whose kernel runs
+    once `check_inputs` has refused every device but CUDA."""
+    return not t.is_cpu
+
+
+class KernelInputError(TypeError, ValueError):
+    """Inputs a kernel or its plain version does not take.  It is both a
+    TypeError (a dtype) and a ValueError (a shape, layout or device), as
+    numpy's AxisError is both a ValueError and an IndexError."""
+
+
+def check_inputs(what, *, views=(), cpu=True, **tensors):
+    """Raise KernelInputError unless `tensors`, each name=(tensor, shape),
+    are what kernel entry `what` takes, or on the CPU its plain version.
+
+    A shape entry is a size or the name of one, alike wherever it recurs
+    (e.g. ("B", 2, "ny", "nx")).  The dtype is float32 off the CPU (every
+    kernel computes in float32) and float32 or float64 on the CPU, all
+    alike.  Each tensor is contiguous; those named in `views` only within
+    each sample, samples at least one apart (a view of some planes of a
+    larger buffer).  All lie on the first tensor's device: the CPU
+    (unless not `cpu`, for an entry with no plain version) or one CUDA
+    device.  It runs on every launch, so it reads each tensor's metadata
+    once and builds a message only to raise it."""
+    ref = None
+    dims = {}
+    for name, (t, shape) in tensors.items():
+        if ref is None:
+            first, ref, dev = name, t, t.device
+            allowed = _CPU_DTYPES if t.is_cpu else _CARD_DTYPES
+        size = t.shape
+        fits = len(size) == len(shape)
+        for d, n in zip(shape, size):
+            if (dims.setdefault(d, n) if d.__class__ is str else d) != n:
+                fits = False
+        if not fits:
+            want = ", ".join(str(dims.get(d, d)) for d in shape)
+            raise KernelInputError(f"{what}: {name} must be ({want}), not "
+                                   f"{tuple(size)}")
+        if t.dtype not in allowed or t.dtype != ref.dtype:
+            raise KernelInputError(
+                f"{what}: {name} is {t.dtype}, {first} {ref.dtype}; a kernel "
+                f"takes float32, its plain version float32 or float64, all "
+                f"alike")
+        if not (t.is_contiguous() or name in views and _samples_dense(t)):
+            raise KernelInputError(f"{what}: {name} is not contiguous")
+        if t.device != dev:
+            raise KernelInputError(
+                f"{what}: {name} is on {t.device}, {first} on {dev}; a "
+                f"kernel takes one CUDA device, its plain version the CPU")
+    if not (ref.is_cuda or ref.is_cpu and cpu):
+        raise KernelInputError(
+            f"{what}: unsupported device {dev}; the kernel runs on CUDA "
+            f"tensors only, all on one CUDA device")
+
+
+_CPU_DTYPES = (torch.float32, torch.float64)
+_CARD_DTYPES = (torch.float32,)
+
+
+def _samples_dense(t):
+    """Whether each sample (index of the first axis) of `t` is contiguous,
+    and the samples lie at least a sample apart."""
+    size, stride = t.shape, t.stride()
+    n = 1
+    for d, s in zip(reversed(size[1:]), reversed(stride[1:])):
+        if d != 1 and s != n:
+            return False
+        n *= d
+    return size[0] <= 1 or stride[0] >= n

@@ -15,12 +15,12 @@ and each level's solver is a few launches per warp.
 
 import torch
 
+from tpuflow_torch._device import on_card
 from tpuflow_torch.ops.gaussian import gaussian_plain, gaussian_taps
 from tpuflow_torch.ops.normalize import joint_range, normalize_joint
 from tpuflow_torch.ops.pyramid import (pyramid_sizes, zoom_in,
                                        zoom_out_levels, zoom_out_plain)
-from tpuflow_torch.ops.pyramid_level import (check_images, on_card,
-                                             pyramid_level)
+from tpuflow_torch.ops.pyramid_level import pyramid_level
 from tpuflow_torch.utils.trace import span
 
 PRESMOOTHING_SIGMA = 0.8  # reference src/tvl1flow.cpp:23
@@ -39,7 +39,6 @@ def build_pyramid(images, nscales, zfactor, presmooth=PRESMOOTHING_SIGMA,
     if not on_card(images[0]):
         return build_pyramid_plain(images, nscales, zfactor, presmooth,
                                    normalize)
-    check_images(images)
     ny, nx = images[0].shape[-2:]
     sizes = pyramid_sizes(nx, ny, zfactor, nscales)
     taps = gaussian_taps(presmooth or 0, images[0].dtype)

@@ -45,8 +45,9 @@ import torch
 import torch.nn.functional as F
 
 from tpuflow_torch import _build
+from tpuflow_torch._device import check_inputs, on_card
 from tpuflow_torch.ops.hs import D_FLOOR
-from tpuflow_torch.ops.sweeps import check_state_const, run_until_stopped
+from tpuflow_torch.ops.sweeps import run_until_stopped, unsolved
 from tpuflow_torch.utils.trace import count, span
 
 SOR_OMEGA = 1.9  # reference src/brox_optic_flow_spatial.cpp:25
@@ -163,8 +164,8 @@ def _device_limits(index):
     """(opt-in shared memory per block, resident blocks of route
     "resident") of CUDA device `index`, as the device reports them."""
     out = (ctypes.c_int * 2)()
-    with torch.cuda.device(index):
-        _build.check(_library().brox_sor_limits(out), "brox_sor_limits")
+    _build.launch(_library(), "brox_sor_limits", out,
+                  device=torch.device("cuda", index), stream=False)
     return out[0], out[1]
 
 
@@ -180,21 +181,16 @@ def device_route(B, ny, nx, device=None):
 def _solve_resident(state, const, thresh, max_iter, alpha):
     """Route "resident" on CUDA tensors: one cooperative launch, in a
     span `solve` as route "stream"'s loop is."""
+    state, err, n = unsolved(state)
     B, _, ny, nx = state.shape
-    dev = state.device
-    err = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
-    n = torch.zeros((B,), dtype=torch.int32, device=dev)
     partial = torch.empty(2 * B * tile_count(ny, nx), dtype=torch.float32,
-                          device=dev)
+                          device=state.device)
     lib = _library()
-    with span("solve"), torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
+    with span("solve"):
         count("calls.brox_sor_error.resident")
-        _build.check(lib.brox_sor_solve(
-            state.data_ptr(), const.data_ptr(), partial.data_ptr(),
-            partial.numel(), err.data_ptr(), n.data_ptr(), B, ny, nx,
-            float(thresh), int(max_iter), float(alpha), stream),
-            "brox_sor_solve")
+        _build.launch(lib, "brox_sor_solve", state, const, partial,
+                      partial.numel(), err, n, B, ny, nx, float(thresh),
+                      int(max_iter), float(alpha), device=state.device)
     return state, err, n
 
 
@@ -216,18 +212,14 @@ def brox_sor_error(state, const, thresh, max_iter, alpha):
     float32 contiguous; thresh, max_iter, alpha: Python scalars.
     Returns (state, err (B,) float32, n (B,) int32).  A solve is one
     span `solve` on every route, the plain version's too."""
-    check_state_const(state, const, 2, 9)
-    if state.device.type == "cpu":
+    check_inputs("brox_sor_error", state=(state, ("B", 2, "ny", "nx")),
+                 const=(const, ("B", 9, "ny", "nx")))
+    if not on_card(state):
         with span("solve"):
             return brox_sor_error_plain(state, const, thresh, max_iter, alpha)
-    if state.device.type != "cuda":
-        raise ValueError(f"unsupported device {state.device}")
-    B, _, ny, nx = state.shape
     if state.numel() == 0 or max_iter <= 0:
-        dev = state.device
-        return (state,
-                torch.full((B,), float("inf"), dtype=torch.float32, device=dev),
-                torch.zeros((B,), dtype=torch.int32, device=dev))
+        return unsolved(state)
+    B, _, ny, nx = state.shape
     if device_route(B, ny, nx, state.device) == "resident":
         return _solve_resident(state, const, thresh, max_iter, alpha)
     return _solve_stream(state, const, thresh, max_iter, alpha)

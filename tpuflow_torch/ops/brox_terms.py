@@ -10,11 +10,11 @@ ny, nx) in K7's order Au, Av, Du, Dv, D, psi1, psi2, psi3, psi4
 src/brox_spatial_mask.cpp).  `first` says that (du, dv) is zero, as at
 an outer iteration's first inner iteration: the state is then not read.
 
-On a CUDA tensor the wrapper launches csrc/brox_terms.cu (one launch,
-counted in `calls.brox_terms`) or raises a ValueError for a dtype,
-device or layout the kernel does not take; on a CPU tensor it runs
-`brox_terms_plain`.  The kernel rounds every operation as the plain
-version does, in its order, so the two agree bit for bit on the card.
+After `check_inputs`, the wrapper launches csrc/brox_terms.cu on a
+CUDA tensor (one launch, counted in `calls.brox_terms`) and runs
+`brox_terms_plain` on a CPU tensor.  The kernel rounds every operation
+as the plain version does, in its order, so the two agree bit for bit
+on the card.
 `psi_divergence` and `psi_weighted_divergence` are the plain version's
 smoothness stencils, which the other Brox-family solvers share.
 """
@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from tpuflow_torch import _build
+from tpuflow_torch._device import check_inputs, on_card
 from tpuflow_torch.ops.gradients import _shift_clamp, centered_gradient
 from tpuflow_torch.utils.trace import count
 
@@ -114,30 +115,6 @@ def brox_terms_plain(u, v, I1, I1x, I1y, warped, state, const, alpha, gamma,
     return const
 
 
-def _check(u, v, I1, I1x, I1y, warped, state, const):
-    """Raise a ValueError unless every tensor is a contiguous CUDA float32
-    tensor on one device, of the shapes `brox_terms` takes."""
-    B, ny, nx = u.shape
-    shapes = {"u": (u, (B, ny, nx)), "v": (v, (B, ny, nx)),
-              "I1": (I1, (B, ny, nx)), "I1x": (I1x, (B, ny, nx)),
-              "I1y": (I1y, (B, ny, nx)), "warped": (warped, (B, 6, ny, nx)),
-              "state": (state, (B, 2, ny, nx)),
-              "const": (const, (B, 9, ny, nx))}
-    for name, (t, shape) in shapes.items():
-        if t.dtype != torch.float32:
-            raise ValueError(f"brox_terms: K9 takes float32, {name} is "
-                             f"{t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"brox_terms: {name} is {tuple(t.shape)}, "
-                             f"not {shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"brox_terms: {name} is not contiguous")
-    for name, (t, _) in shapes.items():
-        if t.device.type != "cuda" or t.device != u.device:
-            raise ValueError(f"brox_terms: {name} on {t.device}, u on "
-                             f"{u.device}: K9 takes one CUDA device")
-
-
 def brox_terms(u, v, I1, I1x, I1y, warped, state, const, alpha, gamma,
                first):
     """Write one inner iteration's Brox system into `const` in place.
@@ -147,23 +124,20 @@ def brox_terms(u, v, I1, I1x, I1y, warped, state, const, alpha, gamma,
     2, ny, nx) = (du, dv), not read where `first` is set (du = dv = 0);
     const: (B, 9, ny, nx) = (Au, Av, Du, Dv, D, psi1, psi2, psi3, psi4),
     written whole; alpha, gamma: Python scalars.  Returns `const`."""
-    if const.device.type == "cpu":
+    planes = ("B", "ny", "nx")
+    check_inputs("brox_terms", u=(u, planes), v=(v, planes), I1=(I1, planes),
+                 I1x=(I1x, planes), I1y=(I1y, planes),
+                 warped=(warped, ("B", 6, "ny", "nx")),
+                 state=(state, ("B", 2, "ny", "nx")),
+                 const=(const, ("B", 9, "ny", "nx")))
+    if not on_card(const):
         return brox_terms_plain(u, v, I1, I1x, I1y, warped, state, const,
                                 alpha, gamma, first)
-    if u.ndim != 3:
-        raise ValueError(f"brox_terms: u must be (B, ny, nx), got "
-                         f"{tuple(u.shape)}")
-    _check(u, v, I1, I1x, I1y, warped, state, const)
     B, ny, nx = u.shape
     lib = _build.load("brox_terms", _SIGNATURES,
                       ("brox_terms_geometry", (*TILE, HALO, THREADS)))
-    with torch.cuda.device(u.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.brox_terms(
-            u.data_ptr(), v.data_ptr(), I1.data_ptr(), I1x.data_ptr(),
-            I1y.data_ptr(), warped.data_ptr(), state.data_ptr(),
-            const.data_ptr(), B, ny, nx, float(alpha), float(gamma),
-            EPSILON * EPSILON, int(bool(first)), stream)
+    _build.launch(lib, "brox_terms", u, v, I1, I1x, I1y, warped, state, const,
+                  B, ny, nx, float(alpha), float(gamma), EPSILON * EPSILON,
+                  int(bool(first)), device=u.device)
     count("calls.brox_terms")
-    _build.check(status, "brox_terms")
     return const

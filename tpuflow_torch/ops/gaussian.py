@@ -26,7 +26,8 @@ and raises for any other dtype or device.
 import numpy as np
 import torch
 
-from tpuflow_torch.ops.pyramid_level import on_card, pyramid_level
+from tpuflow_torch._device import on_card
+from tpuflow_torch.ops.pyramid_level import pyramid_level
 
 DEFAULT_WINDOW = 5  # reference src/operators.h:120
 

@@ -37,8 +37,9 @@ import ctypes
 import torch
 
 from tpuflow_torch import _build
+from tpuflow_torch._device import check_inputs, on_card
 from tpuflow_torch.ops.gradients import _shift_clamp
-from tpuflow_torch.ops.sweeps import check_state_const, launch_until_stopped
+from tpuflow_torch.ops.sweeps import launch_until_stopped, unsolved
 from tpuflow_torch.utils.trace import count
 
 SOR_OMEGA = 1.9  # reference src/horn_schunck_pyramidal.cpp:21
@@ -158,42 +159,35 @@ def hs_sor_error(state, const, thresh, max_iter, alpha2):
     const: (B, 5, ny, nx) = (Au, Av, Du, Dv, D) as `warp_const_hs_batched`
     gives them; thresh, max_iter, alpha2: Python scalars.
     Returns (state, err (B,) float32, n (B,) int32)."""
-    check_state_const(state, const, 2, 5)
-    if state.device.type == "cpu":
+    check_inputs("hs_sor_error", state=(state, ("B", 2, "ny", "nx")),
+                 const=(const, ("B", 5, "ny", "nx")))
+    if not on_card(state):
         return hs_sor_error_plain(state, const, thresh, max_iter, alpha2)
-    if state.device.type != "cuda":
-        raise ValueError(f"unsupported device {state.device}")
-    B, _, ny, nx = state.shape
-    dev = state.device
-    err = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
-    n = torch.zeros((B,), dtype=torch.int32, device=dev)
+    state, err, n = unsolved(state)
     if state.numel() == 0 or max_iter <= 0:
         return state, err, n
+    B, _, ny, nx = state.shape
+    dev = state.device
     lib = _library()
-    thresh, max_iter, alpha2 = float(thresh), int(max_iter), float(alpha2)
+    args = (float(thresh), int(max_iter), float(alpha2))
+    count("calls.hs_sor_error")
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        count("calls.hs_sor_error")
-        if device_route(ny, nx) == "level":
-            _build.check(lib.hs_sor_solve(
-                state.data_ptr(), const.data_ptr(), err.data_ptr(),
-                n.data_ptr(), B, ny, nx, thresh, max_iter, alpha2, stream),
-                "hs_sor_solve")
-            return state, err, n
-        scratch = torch.empty_like(state)
-        partial = torch.empty(lib.hs_sor_partial_len(B, ny, nx),
-                              dtype=torch.float32, device=dev)
-        active = torch.ones((B,), dtype=torch.int32, device=dev)
+        route = device_route(ny, nx)
+    if route == "level":
+        _build.launch(lib, "hs_sor_solve", state, const, err, n, B, ny, nx,
+                      *args, device=dev)
+        return state, err, n
+    scratch = torch.empty_like(state)
+    partial = torch.empty(lib.hs_sor_partial_len(B, ny, nx),
+                          dtype=torch.float32, device=dev)
+    active = torch.ones((B,), dtype=torch.int32, device=dev)
 
-        def sweeps(iters):
-            _build.check(lib.hs_sor_run(
-                state.data_ptr(), scratch.data_ptr(), const.data_ptr(),
-                partial.data_ptr(), partial.numel(), err.data_ptr(),
-                n.data_ptr(), active.data_ptr(), B, ny, nx, thresh, max_iter,
-                alpha2, iters, stream), "hs_sor_run")
+    def sweeps(iters):
+        _build.launch(lib, "hs_sor_run", state, scratch, const, partial,
+                      partial.numel(), err, n, active, B, ny, nx, *args,
+                      iters, device=dev)
 
-        launch_until_stopped(sweeps, active, max_iter)
-        _build.check(lib.hs_sor_finish(state.data_ptr(), scratch.data_ptr(),
-                                       n.data_ptr(), B, ny, nx, stream),
-                     "hs_sor_finish")
+    launch_until_stopped(sweeps, active, max_iter)
+    _build.launch(lib, "hs_sor_finish", state, scratch, n, B, ny, nx,
+                  device=dev)
     return state, err, n

@@ -26,7 +26,7 @@ import ctypes
 import torch
 
 from tpuflow_torch import _build
-from tpuflow_torch._device import check_dtype
+from tpuflow_torch._device import check_inputs, on_card
 from tpuflow_torch.ops.hs import neighbour_sums
 from tpuflow_torch.utils.trace import count
 
@@ -71,32 +71,18 @@ def hs_classic_fused_plain(Ex, Ey, Et, alpha, niter):
     return u, v
 
 
-def _check(Ex, Ey, Et, niter):
-    if Ex.ndim != 3:
-        raise ValueError(f"Ex must be (B, ny, nx), got {tuple(Ex.shape)}")
-    for name, t in (("Ex", Ex), ("Ey", Ey), ("Et", Et)):
-        if t.shape != Ex.shape:
-            raise ValueError(f"{name} must be {tuple(Ex.shape)}, got {tuple(t.shape)}")
-        check_dtype(name, t, Ex)
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.device != Ex.device:
-            raise ValueError(f"{name} is on {t.device}, Ex on {Ex.device}")
-    if int(niter) != niter or niter < 0:
-        raise ValueError(f"niter must be a non-negative integer, got {niter}")
-
-
 def hs_classic_fused(Ex, Ey, Et, alpha, niter):
     """Classic HS's whole Jacobi solve.
 
     Ex, Ey, Et: (B, ny, nx) float32 contiguous derivatives (computed once
     per pair, src/horn_schunck_classic.cpp:139); alpha, niter: Python
     scalars.  Returns (u, v), each (B, ny, nx) float32."""
-    _check(Ex, Ey, Et, niter)
-    if Ex.device.type == "cpu":
+    check_inputs("hs_classic_fused", Ex=(Ex, ("B", "ny", "nx")),
+                 Ey=(Ey, ("B", "ny", "nx")), Et=(Et, ("B", "ny", "nx")))
+    if int(niter) != niter or niter < 0:
+        raise ValueError(f"niter must be a non-negative integer, got {niter}")
+    if not on_card(Ex):
         return hs_classic_fused_plain(Ex, Ey, Et, alpha, niter)
-    if Ex.device.type != "cuda":
-        raise ValueError(f"unsupported device {Ex.device}")
     B, ny, nx = Ex.shape
     bufs = torch.empty((2, B, 2, ny, nx), dtype=torch.float32,
                        device=Ex.device)
@@ -106,13 +92,8 @@ def hs_classic_fused(Ex, Ey, Et, alpha, niter):
         return bufs[0, :, 0], bufs[0, :, 1]
     lib = _build.load("hs_classic", _SIGNATURES,
                       ("hs_classic_geometry", (*TILE, STEPS)))
-    with torch.cuda.device(Ex.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.hs_classic_run(bufs[0].data_ptr(), bufs[1].data_ptr(),
-                                    Ex.data_ptr(), Ey.data_ptr(),
-                                    Et.data_ptr(), B, ny, nx,
-                                    float(alpha * alpha), niter, stream)
+    _build.launch(lib, "hs_classic_run", bufs[0], bufs[1], Ex, Ey, Et, B, ny,
+                  nx, float(alpha * alpha), niter, device=Ex.device)
     count("calls.hs_classic_fused")
-    _build.check(status, "hs_classic_run")
     out = bufs[len(launch_steps(niter)) % 2]
     return out[:, 0], out[:, 1]

@@ -32,8 +32,9 @@ import math
 import numpy as np
 import torch
 
+from tpuflow_torch._device import on_card
 from tpuflow_torch.ops.gaussian import gaussian_plain, gaussian_taps
-from tpuflow_torch.ops.pyramid_level import on_card, pyramid_level
+from tpuflow_torch.ops.pyramid_level import pyramid_level
 
 ZOOM_SIGMA_ZERO = 0.6
 

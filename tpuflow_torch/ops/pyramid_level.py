@@ -10,10 +10,11 @@ weights per output row and column).  The result is one buffer
 
 Its callers route on what they can observe: `gaussian(..., "reflecting")`,
 `zoom_out` and `models.common.build_pyramid` run their plain versions
-for a CPU tensor and hand any other to `pyramid_level` (`on_card`),
-which launches K8 for CUDA float32 tensors and raises a ValueError for
-every other dtype or device; there is no switch and no fallback, and a
-launch the card refuses raises.  Each launch counts in `launches.k8`
+for a CPU tensor and hand any other to `pyramid_level`
+(`tpuflow_torch._device.on_card`), which launches K8 for CUDA float32
+tensors and raises for every other dtype or device (`check_inputs`);
+there is no switch and no fallback, and a launch the card refuses
+raises.  Each launch counts in `launches.k8`
 (tpuflow_torch.utils.trace).  The kernel rounds every operation as the
 plain versions do, so its levels equal theirs bit for bit where each
 output has one non-zero resampling weight (zfactor 0.5).
@@ -25,6 +26,7 @@ import numpy as np
 import torch
 
 from tpuflow_torch import _build
+from tpuflow_torch._device import check_inputs
 from tpuflow_torch.utils.trace import count
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -41,12 +43,6 @@ THREADS = 256
 # outputs a block makes, (rows, columns): without and with resampling
 TILE = {False: (64, 64), True: (32, 32)}
 SMEM_LIMIT = 232448   # the shared memory a block may opt into on sm_90
-
-
-def on_card(t):
-    """True for any tensor not on the CPU: K8 serves it (a CUDA float32
-    tensor) or `pyramid_level` raises."""
-    return t.device.type != "cpu"
 
 
 def reflect_index(i, n):
@@ -100,23 +96,6 @@ def _geometry(ntaps, resample):
             tile[0], (tile[1] + 1) // 2)
 
 
-def check_images(images):
-    """Raise a ValueError unless `images` are at most MAX_INPUTS CUDA
-    float32 tensors of one shape on one device."""
-    if len(images) > MAX_INPUTS:
-        raise ValueError(f"pyramid_level: {len(images)} images exceed "
-                         f"{MAX_INPUTS}")
-    for im in images:
-        if im.dtype != torch.float32:
-            raise ValueError(f"pyramid_level: K8 takes float32 tensors, "
-                             f"got {im.dtype}")
-        if im.device.type != "cuda":
-            raise ValueError(f"pyramid_level: unsupported device {im.device}")
-        if im.shape != images[0].shape or im.device != images[0].device:
-            raise ValueError("pyramid_level: images must have one shape "
-                             "and lie on one device")
-
-
 def pyramid_level(images, taps=(), norm=None, resample=None):
     """One pyramid level of `images` (a tuple of at most MAX_INPUTS
     same-shape CUDA float32 tensors (*lead, ny, nx)) in one launch;
@@ -133,11 +112,15 @@ def pyramid_level(images, taps=(), norm=None, resample=None):
               anchors on the card (int32), weights on the card (float32,
               (n_out, 4)), n_in): the Keys cell per output row and column
     """
-    check_images(images)
-    ref = images[0]
+    if len(images) > MAX_INPUTS:
+        raise ValueError(f"pyramid_level: {len(images)} images exceed "
+                         f"{MAX_INPUTS}")
     if len(taps) > MAX_TAPS:
         raise ValueError(f"pyramid_level: {len(taps)} taps exceed {MAX_TAPS}")
     images = tuple(im.contiguous() for im in images)
+    ref = images[0]
+    check_inputs("pyramid_level", cpu=False, **{
+        f"images[{k}]": (im, tuple(ref.shape)) for k, im in enumerate(images)})
     *lead, ny, nx = ref.shape
     h = len(taps) - 1 if len(taps) > 1 else 0
     for n in (ny, nx):
@@ -156,10 +139,7 @@ def pyramid_level(images, taps=(), norm=None, resample=None):
     tile, span, smem = _geometry(len(taps), resample)
     wts = ctypes.cast((ctypes.c_float * max(1, len(taps)))(*taps),
                       ctypes.c_void_p)
-    mn = mx = None
-    inner = 1
-    if norm is not None:
-        mn, mx, inner = norm
+    mn, mx, inner = (None, None, 1) if norm is None else norm
     ay = wy = ax = wx = None
     if resample is not None:
         (_, ay, wy, _), (_, ax, wx, _) = resample
@@ -168,16 +148,8 @@ def pyramid_level(images, taps=(), norm=None, resample=None):
                        (MAX_TAPS, MAX_INPUTS, THREADS)))
     ptrs = ctypes.cast((ctypes.c_longlong * len(images))(
         *(im.data_ptr() for im in images)), ctypes.c_void_p)
-    with torch.cuda.device(ref.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.pyramid_level(
-            ptrs, len(images), ppi, ny, nx, _ptr(mn), _ptr(mx), inner, wts,
-            len(taps), _ptr(ay), _ptr(wy), _ptr(ax), _ptr(wx), nyy, nxx,
-            tile[0], tile[1], span[0], span[1], smem, out.data_ptr(), stream)
+    _build.launch(lib, "pyramid_level", ptrs, len(images), ppi, ny, nx, mn, mx,
+                  inner, wts, len(taps), ay, wy, ax, wx, nyy, nxx, tile[0],
+                  tile[1], span[0], span[1], smem, out, device=ref.device)
     count("launches.k8")
-    _build.check(status, "pyramid_level")
     return out
-
-
-def _ptr(t):
-    return None if t is None else t.data_ptr()

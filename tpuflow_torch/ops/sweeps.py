@@ -15,36 +15,28 @@ launches CHECK_EVERY iterations at a time and reads the per-sample
 CHECK_EVERY - 1 iterations after its last sample stopped (those launches
 return at once for inactive samples).  The loop is a span `solve`, each
 read a span `host_read` counted in `host_reads`
-(tpuflow_torch.utils.trace).
+(tpuflow_torch.utils.trace).  `unsolved` is every card route's result
+before its first sweep (K7's route "resident" and K4's routes too).
 """
 
 import torch
 
 from tpuflow_torch import _build
-from tpuflow_torch._device import check_dtype
 from tpuflow_torch.utils.trace import count, span
 
 # iterations or sweeps launched between two host reads of `active`
 CHECK_EVERY = 16
 
 
-def check_state_const(state, const, n_state, n_const):
-    """Raise unless state is (B, n_state, ny, nx) and const (B, n_const,
-    ny, nx), both of one dtype (float32 on the card; float32 or float64
-    on the CPU), contiguous and on one device."""
-    if state.ndim != 4 or state.shape[1] != n_state:
-        raise ValueError(f"state must be (B, {n_state}, ny, nx), got "
-                         f"{tuple(state.shape)}")
-    B, _, ny, nx = state.shape
-    if tuple(const.shape) != (B, n_const, ny, nx):
-        raise ValueError(f"const must be {(B, n_const, ny, nx)}, got "
-                         f"{tuple(const.shape)}")
-    for name, t in (("state", state), ("const", const)):
-        check_dtype(name, t, state)
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if const.device != state.device:
-        raise ValueError(f"const is on {const.device}, state on {state.device}")
+def unsolved(state):
+    """(state, err, n) of a solve before its first sweep: err = inf (B,)
+    float32 and n = 0 (B,) int32 on state's device, which the kernels
+    update in place.  It is the result of a solve with nothing to run (an
+    empty system, or max_iter <= 0)."""
+    B, dev = state.shape[0], state.device
+    return (state,
+            torch.full((B,), float("inf"), dtype=torch.float32, device=dev),
+            torch.zeros((B,), dtype=torch.int32, device=dev))
 
 
 def run_until_stopped(calls, kernel, library, signatures, run, partial_len,
@@ -55,32 +47,24 @@ def run_until_stopped(calls, kernel, library, signatures, run, partial_len,
     iterations in `iters.<kernel>`; `scalars` are the kernel's float
     parameters.  Updates `state` in place and returns (state, err (B,)
     float32, n (B,) int32)."""
-    B, _, ny, nx = state.shape
-    dev = state.device
-    err = torch.full((B,), float("inf"), dtype=torch.float32, device=dev)
-    n = torch.zeros((B,), dtype=torch.int32, device=dev)
-    active = torch.full((B,), int(max_iter > 0), dtype=torch.int32,
-                        device=dev)
+    state, err, n = unsolved(state)
     if state.numel() == 0 or max_iter <= 0:
         return state, err, n
+    B, _, ny, nx = state.shape
+    active = torch.ones((B,), dtype=torch.int32, device=state.device)
     lib = _build.load(library, signatures)
     partial = torch.empty(getattr(lib, partial_len)(B, ny, nx),
-                          dtype=torch.float32, device=dev)
-    entry = getattr(lib, run)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        count(f"calls.{calls}")
+                          dtype=torch.float32, device=state.device)
+    count(f"calls.{calls}")
 
-        def launch(iters):
-            status = entry(state.data_ptr(), const.data_ptr(),
-                           partial.data_ptr(), partial.numel(), err.data_ptr(),
-                           n.data_ptr(), active.data_ptr(), B, ny, nx,
-                           float(thresh), int(max_iter),
-                           *(float(s) for s in scalars), iters, stream)
-            count(f"iters.{kernel}", iters)
-            _build.check(status, run)
+    def launch(iters):
+        _build.launch(lib, run, state, const, partial, partial.numel(), err,
+                      n, active, B, ny, nx, float(thresh), int(max_iter),
+                      *(float(s) for s in scalars), iters,
+                      device=state.device)
+        count(f"iters.{kernel}", iters)
 
-        launch_until_stopped(launch, active, max_iter)
+    launch_until_stopped(launch, active, max_iter)
     return state, err, n
 
 

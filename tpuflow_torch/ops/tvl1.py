@@ -28,8 +28,9 @@ import ctypes
 
 import torch
 
+from tpuflow_torch._device import check_inputs, on_card
 from tpuflow_torch.ops.gradients import divergence, forward_gradient
-from tpuflow_torch.ops.sweeps import check_state_const, run_until_stopped
+from tpuflow_torch.ops.sweeps import run_until_stopped
 from tpuflow_torch.utils.trace import count
 
 GRAD_IS_ZERO = 1e-10  # reference src/tvl1flow.cpp:24
@@ -108,12 +109,11 @@ def tvl1_iterate_error(state, const, thresh, max_iter, l_t, theta, taut):
     contiguous, updated in place; const: (B, 4, ny, nx) =
     (I1wx, I1wy, rho_c, grad); thresh, max_iter: Python scalars.
     Returns (state, err (B,) float32, n (B,) int32)."""
-    check_state_const(state, const, 6, 4)
-    if state.device.type == "cpu":
+    check_inputs("tvl1_iterate_error", state=(state, ("B", 6, "ny", "nx")),
+                 const=(const, ("B", 4, "ny", "nx")))
+    if not on_card(state):
         return tvl1_iterate_error_plain(state, const, thresh, max_iter, l_t,
                                         theta, taut)
-    if state.device.type != "cuda":
-        raise ValueError(f"unsupported device {state.device}")
     return run_until_stopped("tvl1_iterate_error", "k2", "tvl1_iterate",
                              _SIGNATURES, "tvl1_iterate_run",
                              "tvl1_partial_len", state, const, thresh,

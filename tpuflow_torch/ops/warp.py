@@ -65,8 +65,9 @@ launches the kernel and nothing else.  The launches are counted
 `calls.warp_planes[_shift]_batched.g<planes>`, so a run can show them
 apart.  On a CUDA tensor a wrapper launches the
 kernel (or raises); on a CPU tensor it runs `warp_const_plain`,
-`warp_planes_plain` or `warp_planes_shift_plain`, the same arithmetic
-in PyTorch.
+`warp_planes_plain`, `warp_planes_shift_plain` or `warp_planes_uv_plain`,
+the same arithmetic in PyTorch.  The four K5/K5p wrappers are thin calls
+into one entry, `_warp_planes`, which checks their inputs once.
 """
 
 import ctypes
@@ -75,7 +76,7 @@ import functools
 import torch
 
 from tpuflow_torch import _build
-from tpuflow_torch._device import check_dtype
+from tpuflow_torch._device import KernelInputError, check_inputs, on_card
 from tpuflow_torch.utils.trace import count
 
 _SIGNATURES = {
@@ -88,8 +89,9 @@ _SIGNATURES = {
                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
                       ctypes.c_float, ctypes.c_void_p],
 }
-# mode -> (C entry point, constant planes)
-_MODES = {"tvl1": ("warp_const_tvl1", 4), "hs": ("warp_const_hs", 5)}
+# mode -> (C entry point, constant planes, launch counter)
+_MODES = {"tvl1": ("warp_const_tvl1", 4, "k1"),
+          "hs": ("warp_const_hs", 5, "k3")}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PLANES_SIGNATURES = {
@@ -121,14 +123,13 @@ def _keys(t):
             0.5 * (t3 - t2))
 
 
-def _bounded_bicubic(planes, uv, dmax, strict=True, border_out=True):
+def _bounded_bicubic(planes, u, v, dmax, strict=True, border_out=True):
     """The bounded bicubic warp of every plane of (B, P, ny, nx) `planes`
-    by `uv`: (B, P, ny, nx).  `strict`: K5's bound, 0 past dmax and out
-    of domain; else K5p's shift window, with out-of-domain pixels 0 only
-    if `border_out`."""
+    by the (B, ny, nx) flow `u`, `v`: (B, P, ny, nx).  `strict`: K5's
+    bound, 0 past dmax and out of domain; else K5p's shift window, with
+    out-of-domain pixels 0 only if `border_out`."""
     B, P, ny, nx = planes.shape
     dtype, dev = planes.dtype, planes.device
-    u, v = uv[:, 0], uv[:, 1]
     jj = torch.arange(nx, dtype=dtype, device=dev)
     ii = torch.arange(ny, dtype=dtype, device=dev)[:, None]
     xx = jj + u
@@ -176,12 +177,12 @@ def _window(c, rel, dmax):
 
 
 def warp_const_plain(planes, uv, aux, dmax, mode="tvl1", alpha2=0.0):
-    """Plain PyTorch version of the kernel; same contract as
-    `warp_const_batched`."""
+    """Plain PyTorch version of K1 (mode "tvl1") and K3 ("hs"); same
+    contract as `warp_const_batched` and `warp_const_hs_batched`."""
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}")
     u, v = uv[:, 0], uv[:, 1]
-    iw, iwx, iwy = _bounded_bicubic(planes, uv, dmax).unbind(1)
+    iw, iwx, iwy = _bounded_bicubic(planes, u, v, dmax).unbind(1)
     if mode == "tvl1":
         rho_c = iw - iwx * u - iwy * v - aux
         grad = iwx * iwx + iwy * iwy
@@ -194,88 +195,61 @@ def warp_const_plain(planes, uv, aux, dmax, mode="tvl1", alpha2=0.0):
 def warp_planes_plain(planes, uv, dmax):
     """Plain PyTorch version of K5; same contract as
     `warp_planes_batched`."""
-    return _bounded_bicubic(planes, uv, dmax), 0
+    return _bounded_bicubic(planes, uv[:, 0], uv[:, 1], dmax), 0
 
 
 def warp_planes_shift_plain(planes, uv, dmax, border_out=True):
     """Plain PyTorch version of K5p; same contract as
     `warp_planes_shift_batched`."""
-    return _bounded_bicubic(planes, uv, dmax, strict=False,
+    return _bounded_bicubic(planes, uv[:, 0], uv[:, 1], dmax, strict=False,
                             border_out=border_out), 0
 
 
-def _check(planes, uv, aux, dmax):
-    """Shapes, types and layout of a warp's inputs; `aux` is None for K5,
-    whose planes may be any number P."""
-    if planes.ndim != 4 or (aux is not None and planes.shape[1] != 3):
-        want = "(B, 3, ny, nx)" if aux is not None else "(B, P, ny, nx)"
-        raise ValueError(f"planes must be {want}, got {tuple(planes.shape)}")
-    B, _, ny, nx = planes.shape
-    if tuple(uv.shape) != (B, 2, ny, nx):
-        raise ValueError(f"uv must be {(B, 2, ny, nx)}, got {tuple(uv.shape)}")
-    if aux is not None and tuple(aux.shape) != (B, ny, nx):
-        raise ValueError(f"aux must be {(B, ny, nx)}, got {tuple(aux.shape)}")
-    for name, t in (("planes", planes), ("uv", uv), ("aux", aux)):
-        if t is None:
-            continue
-        check_dtype(name, t, planes)
-        if t.device != planes.device:
-            raise ValueError(f"{name} is on {t.device}, planes on {planes.device}")
-    if not planes.is_contiguous() or not (aux is None or aux.is_contiguous()):
-        raise ValueError("planes and aux must be contiguous")
-    if B > 1 and uv.stride(0) < 2 * ny * nx or uv.stride()[1:] != (ny * nx, nx, 1):
-        raise ValueError("uv must be contiguous within each sample")
+def warp_planes_uv_plain(planes, u, v, dmax, shift=False, border_out=True):
+    """Plain PyTorch version of `warp_planes_uv`, on any device."""
+    if planes.ndim == 3:
+        return warp_planes_uv_plain(planes[None], u[None], v[None], dmax,
+                                    shift, border_out)[0]
+    return _bounded_bicubic(planes, u, v, dmax, strict=not shift,
+                            border_out=border_out or not shift)
+
+
+def _check_dmax(dmax):
     if int(dmax) != dmax or dmax < 0:
         raise ValueError(f"dmax must be a non-negative integer, got {dmax}")
 
 
-def _on_card(t):
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"unsupported device {t.device}")
-    return True
-
-
-def _launch(kernel, mode, planes, uv, aux, dmax, alpha2):
+def _warp_const(mode, planes, uv, aux, dmax, alpha2):
     """Run `mode`'s kernel on a CUDA tensor (counting the launch in
-    `launches.<kernel>`), its plain version on a CPU tensor."""
-    _check(planes, uv, aux, dmax)
-    if not _on_card(planes):
+    `launches.<k1 or k3>`), its plain version on a CPU tensor."""
+    entry, nout, kernel = _MODES[mode]
+    check_inputs(entry, planes=(planes, ("B", 3, "ny", "nx")),
+                 uv=(uv, ("B", 2, "ny", "nx")), aux=(aux, ("B", "ny", "nx")),
+                 views=("uv",))
+    _check_dmax(dmax)
+    if not on_card(planes):
         return warp_const_plain(planes, uv, aux, dmax, mode, alpha2)
-    entry, nout = _MODES[mode]
     B, _, ny, nx = planes.shape
     out = torch.empty((B, nout, ny, nx), dtype=planes.dtype,
                       device=planes.device)
     if out.numel() == 0:
         return out, 0
-    lib = _build.load("warp_const", _SIGNATURES)
     extra = (float(alpha2),) if mode == "hs" else ()
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = getattr(lib, entry)(planes.data_ptr(), uv.data_ptr(),
-                                     uv.stride(0), aux.data_ptr(),
-                                     out.data_ptr(), B, ny, nx, int(dmax),
-                                     *extra, stream)
+    _build.launch(_build.load("warp_const", _SIGNATURES), entry, planes, uv,
+                  uv.stride(0), aux, out, B, ny, nx, int(dmax), *extra,
+                  device=planes.device)
     count(f"launches.{kernel}")
-    _build.check(status, entry)
     return out, 0
 
 
-def warp_const_batched(planes, uv, aux, dmax, mode="tvl1", alpha2=0.0):
-    """Bounded warp of (I, Ix, Iy) + one warp's constants (K1).
+def warp_const_batched(planes, uv, aux, dmax):
+    """Bounded warp of (I1, I1x, I1y) + one warp's TV-L1 constants (K1).
 
     planes: (B, 3, ny, nx) float32 contiguous; uv: (B, 2, ny, nx) float32
     flow (u, v), contiguous within each sample (a view of the first two
-    planes of the solver state is fine); aux: (B, ny, nx), I0 ("tvl1")
-    or I1 ("hs").  Returns ((B, 4, ny, nx) TV-L1 constants, overflow
-    count = 0); mode="hs" returns `warp_const_hs_batched`'s result."""
-    if mode == "hs":
-        return warp_const_hs_batched(planes, uv, aux, dmax, alpha2)
-    if mode != "tvl1":
-        raise ValueError(f"unknown mode {mode!r}")
-    return _launch("k1", "tvl1", planes, uv, aux, dmax, 0.0)
+    planes of the solver state is fine); aux: (B, ny, nx) = I0.  Returns
+    ((B, 4, ny, nx) = (I1wx, I1wy, rho_c, grad), overflow count = 0)."""
+    return _warp_const("tvl1", planes, uv, aux, dmax, 0.0)
 
 
 def warp_const_hs_batched(planes, uv, aux, dmax, alpha2):
@@ -283,7 +257,7 @@ def warp_const_hs_batched(planes, uv, aux, dmax, alpha2):
 
     Same inputs as `warp_const_batched` with aux = I1; returns
     ((B, 5, ny, nx) = (Au, Av, Du, Dv, D), overflow count = 0)."""
-    return _launch("k3", "hs", planes, uv, aux, dmax, alpha2)
+    return _warp_const("hs", planes, uv, aux, dmax, alpha2)
 
 
 def plane_groups(P, largest):
@@ -321,30 +295,48 @@ def device_group(B, ny, nx, index):
     return warp_planes_group(B, ny, nx, sms)
 
 
-def _planes_on_card(shift, border_out, planes, u, v, uv_bstride, dmax,
-                    group=None):
-    """Launch K5 (or K5p with `shift`) on CUDA tensors: planes (B, P, ny,
-    nx) contiguous, sample b's flow at u and v + b * uv_bstride, each
-    (ny, nx) contiguous; `group` planes a thread (default:
-    `device_group`'s), counting the launch per wrapper and group."""
+def _warp_planes(planes, u, v, dmax, shift, border_out, group=None):
+    """The one entry of K5 (K5p with `shift`): the kernel on CUDA
+    tensors, counting the launch per wrapper and group, the plain version
+    on CPU tensors.
+
+    planes: (B, P, ny, nx) contiguous; u, v: (B, ny, nx), each sample
+    contiguous, with one batch stride (a stacked flow's two views are
+    fine).  `group` planes a thread: `device_group`'s unless the test
+    hook `warp_planes_on_group` forces one, on CUDA tensors only."""
     wrapper = "warp_planes_shift_batched" if shift else "warp_planes_batched"
+    flow = ("B", "ny", "nx")
+    check_inputs(wrapper, planes=(planes, ("B", "P", "ny", "nx")),
+                 u=(u, flow), v=(v, flow), views=("u", "v"),
+                 cpu=group is None)
+    _check_dmax(dmax)
     B, P, ny, nx = planes.shape
+    if B > 1 and u.stride(0) != v.stride(0):
+        raise KernelInputError(f"{wrapper}: u and v must share one batch "
+                               f"stride, not {u.stride(0)}, {v.stride(0)}")
+    if not on_card(planes):
+        return warp_planes_uv_plain(planes, u, v, dmax, shift, border_out)
+    if group is not None and group not in GROUPS:
+        raise ValueError(f"group must be one of {GROUPS}, got {group}")
     out = torch.empty_like(planes)
     if out.numel() == 0:
         return out
-    lib = _planes_library()
     if group is None:
         group = device_group(B, ny, nx, planes.device.index)
-    with torch.cuda.device(planes.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.warp_planes(
-            planes.data_ptr(), P, u.data_ptr(), v.data_ptr(), uv_bstride,
-            out.data_ptr(), B, ny, nx, int(dmax),
-            _VARIANT[bool(shift), bool(border_out) or not shift], group,
-            stream)
+    _build.launch(_planes_library(), "warp_planes", planes, P, u, v,
+                  u.stride(0), out, B, ny, nx, int(dmax),
+                  _VARIANT[bool(shift), bool(border_out) or not shift], group,
+                  device=planes.device)
     count(f"calls.{wrapper}.g{group}")
-    _build.check(status, "warp_planes")
     return out
+
+
+def _split(uv):
+    """u and v, the two views of a stacked flow uv (B, 2, ny, nx)."""
+    if uv.ndim != 4 or uv.shape[1] != 2:
+        raise KernelInputError(f"uv must be (B, 2, ny, nx), not "
+                               f"{tuple(uv.shape)}")
+    return uv[:, 0], uv[:, 1]
 
 
 def warp_planes_on_group(planes, uv, dmax, group, shift=False,
@@ -353,13 +345,8 @@ def warp_planes_on_group(planes, uv, dmax, group, shift=False,
     thread, one of GROUPS (the wrappers take `device_group`'s).  Same
     inputs and result as `warp_planes_batched`
     (`warp_planes_shift_batched`)."""
-    _check(planes, uv, None, dmax)
-    if not _on_card(planes):
-        raise ValueError("warp_planes_on_group runs on CUDA tensors only")
-    if group not in GROUPS:
-        raise ValueError(f"group must be one of {GROUPS}, got {group}")
-    return _planes_on_card(shift, border_out, planes, uv[:, 0], uv[:, 1],
-                           uv.stride(0), dmax, group), 0
+    return _warp_planes(planes, *_split(uv), dmax, shift, border_out,
+                        group), 0
 
 
 def warp_planes_uv(planes, u, v, dmax, shift=False, border_out=True):
@@ -368,30 +355,11 @@ def warp_planes_uv(planes, u, v, dmax, shift=False, border_out=True):
     K5 (K5p with `shift`) with u and v handed to the kernel as they are
     (one batch stride for both), no stacked copy; the plain version on
     CPU tensors."""
-    single = planes.ndim == 3
-    if single:
-        planes, u, v = planes[None], u[None], v[None]
-    planes = planes.contiguous()
-    if not _on_card(planes):
-        uv = torch.stack([u, v], dim=1)
-        if shift:
-            out, _ = warp_planes_shift_batched(planes, uv, dmax, border_out)
-        else:
-            out, _ = warp_planes_batched(planes, uv, dmax)
-        return out[0] if single else out
-    B, _, ny, nx = planes.shape
-    u, v = u.contiguous(), v.contiguous()
-    for name, t in (("planes", planes), ("u", u), ("v", v)):
-        if t.dtype != torch.float32 or t.device != planes.device:
-            raise ValueError(f"{name} must be float32 on {planes.device}, "
-                             f"got {t.dtype} on {t.device}")
-    if tuple(u.shape) != (B, ny, nx) or tuple(v.shape) != (B, ny, nx):
-        raise ValueError(f"u and v must be {(B, ny, nx)}, got "
-                         f"{tuple(u.shape)} and {tuple(v.shape)}")
-    if int(dmax) != dmax or dmax < 0:
-        raise ValueError(f"dmax must be a non-negative integer, got {dmax}")
-    out = _planes_on_card(shift, border_out, planes, u, v, ny * nx, dmax)
-    return out[0] if single else out
+    if planes.ndim == 3:
+        return warp_planes_uv(planes[None], u[None], v[None], dmax, shift,
+                              border_out)[0]
+    return _warp_planes(planes.contiguous(), u.contiguous(), v.contiguous(),
+                        dmax, shift, border_out)
 
 
 def warp_planes_batched(planes, uv, dmax):
@@ -400,11 +368,7 @@ def warp_planes_batched(planes, uv, dmax):
     planes: (B, P, ny, nx) float32 contiguous, any P; uv: (B, 2, ny, nx)
     float32 flow (u, v), contiguous within each sample.  Returns
     ((B, P, ny, nx) warped planes, 0 out of domain; overflow count = 0)."""
-    _check(planes, uv, None, dmax)
-    if not _on_card(planes):
-        return warp_planes_plain(planes, uv, dmax)
-    return _planes_on_card(False, True, planes, uv[:, 0], uv[:, 1],
-                           uv.stride(0), dmax), 0
+    return _warp_planes(planes, *_split(uv), dmax, False, True), 0
 
 
 def warp_planes_shift_batched(planes, uv, dmax, border_out=True):
@@ -414,8 +378,4 @@ def warp_planes_shift_batched(planes, uv, dmax, border_out=True):
     planes, overflow count = 0): taps outside the window [-dmax-1,
     dmax+2] of each pixel weigh 0, and out-of-domain pixels are 0 if
     `border_out`, else the sum of their clamped taps."""
-    _check(planes, uv, None, dmax)
-    if not _on_card(planes):
-        return warp_planes_shift_plain(planes, uv, dmax, border_out)
-    return _planes_on_card(True, border_out, planes, uv[:, 0], uv[:, 1],
-                           uv.stride(0), dmax), 0
+    return _warp_planes(planes, *_split(uv), dmax, True, border_out), 0
