@@ -20,7 +20,11 @@ then runs these phases, each printing one JSON line:
      436x1024 and 100 at 109x257 (no tile divides it).  K7 (brox_sor)
      at the five Brox levels of 1024x436, B=1 (its route "resident"),
      and at B=2 x 436x1024 (its route "stream"), each check naming its
-     route.  K7 solves the system that `brox_scale` assembles (K9) from
+     route; then route "stream" against route "resident" at B=2 x
+     218x512, which both take (8 fixed sweeps, bit-equal expected), and
+     the kernels one 16-sweep stream solve launches by name (16
+     `brox_sor_colors`, 16 `stop_finalize`, one `brox_sor_color_settle`).
+     K7 solves the system that `brox_scale` assembles (K9) from
      the synthetic flow.  K9 (brox_terms) at the five Brox levels, B=128
      and B=1, on the first inner iteration (a nonzero state it must not
      read) and a later one, each plane within 1e-5 of its scale.  K5 (warp_planes) and K5p (warp_planes_shift, with
@@ -88,7 +92,10 @@ then runs these phases, each printing one JSON line:
      warp's whole solve at 55x128, B=128; and the HS call's sweeps
      needed against launched; K7 as one resident solve of 16 and of 300
      fixed sweeps, one launch each, beside route "stream"'s time per
-     sweep; K7's launches per Brox pair per route and by kernel name).
+     sweep; K7's launches per Brox pair per route and by kernel name;
+     route "stream" at B=128 at level 0 by graph: one sweep in a chunk
+     of 16 against its 13 planes' bound, and a 16-sweep chunk with every
+     sample stopped).
      K5, K5p and K7's resident solves are timed as CUDA graphs between
      CUDA events (`graph_ms`), the profiler's median beside them; K5 and
      K5p at every shape where the main paths launch them, with both plane
@@ -183,6 +190,9 @@ K9_PLANES_LATER = 13 + 9
 K9_FLOPS_PX = 117
 # K9 at level 0, B=128, may take at most this many times its bytes bound
 K9_X_BOUND = 3.0
+# one K7 stream sweep at level 0, B=128, may take at most this many times
+# the bound of its 13 planes
+K7_STREAM_X_BOUND = 2.0
 B_CHECK, B_TIME = 4, 128
 SEED0 = 100
 # TV-L1 (l_t, theta, taut) at the CLI defaults; HS and classic alpha
@@ -691,8 +701,9 @@ def check_brox_sor(dev, ny, nx, dmax, batch=1):
     """K7 against its plain version on a Brox system, naming the route
     the wrapper takes: 8 fixed sweeps, then stop="error" at the solver's
     threshold from the zero increment (n equal or off by one: the kernel
-    sums err in another order), then thresh < 0 at max_iter 300 (n ==
-    300 exactly)."""
+    sums err in another order; du and dv within the 8 sweeps' tolerance
+    in each sample whose n is equal), then thresh < 0 at max_iter 300
+    (n == 300 exactly)."""
     from tpuflow_torch.ops.brox import (brox_sor_error, brox_sor_error_plain,
                                         device_route)
 
@@ -714,10 +725,11 @@ def check_brox_sor(dev, ny, nx, dmax, batch=1):
                                                300, alpha)
     out.update(n=n.tolist(), n_plain=n_ref.tolist(), err=err.tolist(),
                err_plain=err_ref.tolist())
-    out["error_max_abs_err"] = (float((got - ref).abs().max())
-                                if n.tolist() == n_ref.tolist() else None)
+    out.update(stopped_equal_within_tol(got, n, ref, n_ref))
     if not bool(((n - n_ref).abs() <= 1).all()):
         raise AssertionError(f"brox_sor stopping counts differ by more than 1: {out}")
+    if not out["error_within_tol"]:
+        raise AssertionError(f"brox_sor (stop error) disagrees: {out}")
     got, _, n = brox_sor_error(state.clone(), const, -1.0, 300, alpha)
     ref, _, n_ref = brox_sor_error_plain(state.clone(), const, -1.0, 300, alpha)
     out.update(fixed300_n=n.tolist(),
@@ -737,6 +749,154 @@ def check_brox_sor(dev, ny, nx, dmax, batch=1):
         raise AssertionError(f"brox_sor launched {out['k7_stream_sweeps']} "
                              f"sweeps through the host loop, not {want}: {out}")
     return out
+
+
+def stopped_equal_within_tol(got, n, ref, n_ref):
+    """The largest |got - ref| of each sample whose stopping count n
+    equals the plain version's (None where it does not), and whether each
+    lies within 2e-4 of that sample's increment scale (f32, FMA-contracted
+    on the card, as the fixed sweeps' tolerance)."""
+    errs, ok = [], True
+    for k in range(n.numel()):
+        if int(n[k]) != int(n_ref[k]):
+            errs.append(None)
+            continue
+        e = float((got[k] - ref[k]).abs().max())
+        errs.append(e)
+        ok = ok and e <= 2e-4 * max(float(ref[k].abs().max()), 1e-3)
+    return {"error_max_abs_err": max((e for e in errs if e is not None),
+                                     default=None),
+            "error_samples_compared": sum(e is not None for e in errs),
+            "error_within_tol": ok}
+
+
+def check_brox_stream(dev):
+    """K7's route "stream" on a system route "resident" takes too (B=2 at
+    218x512): du and dv after 8 and after 17 fixed sweeps of
+    `_solve_stream` against `brox_sor_error`'s resident solve (bit-equal:
+    the same arithmetic; 17 ends on the scratch buffer, so the settle
+    copies it back); the kernels the profiler records for one 16-sweep
+    stream solve by name: one `brox_sor_colors` and one `stop_finalize` a
+    sweep, one `brox_sor_color_settle` a solve (a window in which the
+    profiler missed a kernel is profiled again, up to 3 times, as
+    `device_ms` does); and stop="error" at level 0 of B_TIME samples
+    (`brox_system`'s scaled right-hand sides, which stop at different
+    sweeps, odd and even, so the blocks walk a shrinking list of active
+    samples) against the plain version: each n within 1, du and dv within
+    tolerance where n is equal."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuflow_torch.ops.brox import (_solve_stream, brox_sor_error,
+                                        device_route)
+
+    ny, nx = 218, 512
+    state, const, _, alpha = brox_system(dev, ny, nx, brox_dmax(1), 2)
+    out = {"shape": list(state.shape), "route": device_route(2, ny, nx)}
+    if out["route"] != "resident":
+        raise AssertionError(f"brox_sor stream check: {out}")
+    for sweeps in (8, 17):
+        got, _, n = _solve_stream(state.clone(), const, -1.0, sweeps, alpha)
+        ref, _, n_ref = brox_sor_error(state.clone(), const, -1.0, sweeps,
+                                       alpha)
+        torch.cuda.synchronize()
+        out.update({f"fixed{sweeps}_n": n.tolist(),
+                    f"fixed{sweeps}_n_resident": n_ref.tolist(),
+                    f"fixed{sweeps}_max_abs_err":
+                        float((got - ref).abs().max()),
+                    f"fixed{sweeps}_bit_equal": bool(torch.equal(got, ref))})
+        if not (n.tolist() == n_ref.tolist() == [sweeps] * 2
+                and out[f"fixed{sweeps}_bit_equal"]):
+            raise AssertionError(f"brox_sor stream against resident: {out}")
+    want = {"brox_sor_colors": 16, "stop_finalize": 16,
+            "brox_sor_color_settle": 1}
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _solve_stream(state.clone(), const, -1.0, 16, alpha)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        recorded = {part: sum(part in name for name in names)
+                    for part in want}
+        if recorded == want:
+            break
+    out.update(kernels_16_sweeps=recorded, profiled_windows=attempt + 1)
+    if recorded != want:
+        raise AssertionError(f"brox_sor stream launches by name: {out}")
+    del state, const, got, ref
+    out["batch"] = batch_stop_error(dev)
+    return out
+
+
+def batch_stop_error(dev):
+    """`check_brox_stream`'s stop="error" case at level 0 of B_TIME samples."""
+    from tpuflow_torch.data import NX, NY
+    from tpuflow_torch.ops.brox import (brox_sor_error, brox_sor_error_plain,
+                                        device_route)
+
+    state, const, thresh, alpha = brox_system(dev, NY, NX, BROX_DMAX0, B_TIME)
+    out = {"shape": list(state.shape), "route": device_route(B_TIME, NY, NX)}
+    got, _, n = brox_sor_error(state.clone(), const, thresh, 300, alpha)
+    ref, _, n_ref = brox_sor_error_plain(state.clone(), const, thresh, 300,
+                                         alpha)
+    torch.cuda.synchronize()
+    out.update(n_distinct=sorted(set(n.tolist())),
+               n_plain_distinct=sorted(set(n_ref.tolist())),
+               n_off_by_one=int((n != n_ref).sum()),
+               n_odd=int((n % 2 == 1).sum()))
+    out.update(stopped_equal_within_tol(got, n, ref, n_ref))
+    if not (out["route"] == "stream" and len(out["n_distinct"]) > 1
+            and out["n_odd"] > 0 and bool(((n - n_ref).abs() <= 1).all())
+            and out["error_within_tol"]):
+        raise AssertionError(f"brox_sor stream at B={B_TIME} (stop error) "
+                             f"disagrees with the plain version: {out}")
+    return out
+
+
+def level0_brox_stream(dev):
+    """K7's route "stream" at its main path's shape, level 0 of B_TIME
+    1024x436 pairs (one system repeated), timed by `graph_ms` (the planes
+    are 50 times the L2, so it is not flushed): a 16-sweep chunk of the
+    library's run entry with every sample active (thresh < 0), per sweep
+    against the bound of its 13 planes, and a 16-sweep chunk with every
+    sample stopped (what the host loop launches after the last sample
+    stopped).  Fails below the bound or above K7_STREAM_X_BOUND times it."""
+    from tpuflow_torch import _build
+    from tpuflow_torch.data import NX, NY
+    from tpuflow_torch.ops.brox import STREAM_TILE, _library, tile_count
+
+    state, const, _, alpha = brox_system(dev, NY, NX, BROX_DMAX0)
+    B = B_TIME
+    state = state.expand(B, -1, -1, -1).contiguous()
+    const = const.expand(B, -1, -1, -1).contiguous()
+    scratch = torch.empty_like(state)
+    partial = torch.empty(B * tile_count(NY, NX, STREAM_TILE), device=dev)
+    err = torch.full((B,), float("inf"), device=dev)
+    n = torch.zeros((B,), dtype=torch.int32, device=dev)
+    lib = _library()
+
+    def chunk(active):
+        _build.launch(lib, "brox_sor_run", state, scratch, const, partial,
+                      partial.numel(), err, n, active, B, NY, NX, -1.0,
+                      2 ** 30, float(alpha), 16, device=state.device)
+
+    on = torch.ones((B,), dtype=torch.int32, device=dev)
+    off = torch.zeros((B,), dtype=torch.int32, device=dev)
+    k = {"unit": f"one sweep, B={B} at {NX}x{NY} (level 0), in a chunk of 16"}
+    k["ms"] = graph_ms(lambda: chunk(on), 2, False) / 16
+    k["bound_ms"], k["bound_by"] = bound_ms(B * NY * NX, K7_PLANES,
+                                            K7_FLOPS_PX)
+    k["x_bound"] = k["ms"] / k["bound_ms"]
+    k["gb_per_s_at_52_b_px"] = B * NY * NX * 4 * K7_PLANES / k["ms"] / 1e6
+    k["stopped_chunk_ms"] = graph_ms(lambda: chunk(off), 10, False)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(state).all()):
+        raise AssertionError(f"brox_sor stream at B={B}: state not finite")
+    if not k["bound_ms"] <= k["ms"] <= K7_STREAM_X_BOUND * k["bound_ms"]:
+        raise AssertionError(f"brox_sor stream sweep outside [1, "
+                             f"{K7_STREAM_X_BOUND}] times its bound: {k}")
+    return k
 
 
 def _warp_hs_plain(planes, uv, aux, dmax, alpha2):
@@ -1663,8 +1823,8 @@ def level0_brox(dev):
     median from device memory (`device_ms`, L2 flushed) beside it, the
     plain version's device ms, the bound, and both calls' ms between
     CUDA events (host-bound here); beside it route "stream" on the same
-    system: a one-sweep call (red, black, finalize) and its device ms per
-    sweep in a 16-sweep call."""
+    system: a one-sweep call (both colors, finalize, settle) and its
+    device ms per sweep in a 16-sweep call."""
     from tpuflow_torch.data import NX, NY
     from tpuflow_torch.ops.brox import (_solve_stream, brox_sor_error,
                                         brox_sor_error_plain, device_route)
@@ -1708,12 +1868,15 @@ def level0_brox(dev):
                                                   300 * K7_FLOPS_PX)
     k["solve_300"] = s300
     # route "stream" on the same system (the wrapper takes "resident"
-    # here): a one-sweep call (red, black, finalize) and per sweep in 16
+    # here): a one-sweep call (both colors, finalize, the settle) and per
+    # sweep in 16 (the settle's share included)
     st = {}
     st["one_sweep_ms"], st["profiler_us"] = device_ms(
-        lambda: k7_stream(1), 50, {"brox_sor_color": 2, "stop_finalize": 1})
+        lambda: k7_stream(1), 50, {"brox_sor_colors": 1, "stop_finalize": 1,
+                                   "brox_sor_color_settle": 1})
     st["ms_per_sweep_in_16"] = device_ms(
-        lambda: k7_stream(16), 10, {"brox_sor_color": 32, "stop_finalize": 16})[0] / 16
+        lambda: k7_stream(16), 10, {"brox_sor_colors": 16, "stop_finalize": 16,
+                                    "brox_sor_color_settle": 1})[0] / 16
     st["one_sweep_bound_ms"] = bound_ms(NY * NX, K7_PLANES, K7_FLOPS_PX)[0]
     k["stream"] = st
     out["brox_sor_error"] = k
@@ -2976,6 +3139,7 @@ def main():
     k7_routes = [c["route"] for c in checks["brox_sor_error"]]
     if k7_routes != ["resident"] * 5 + ["stream"]:
         raise AssertionError(f"brox_sor took routes {k7_routes}")
+    emit(phase="brox_sor_stream_vs_resident", **check_brox_stream(dev))
 
     counters = (warp_const_batched, tvl1_iterate_error, warp_const_hs_batched,
                 hs_sor_error, warp_planes_batched, warp_planes_shift_batched,
@@ -3085,6 +3249,7 @@ def main():
     del I0, I1
     lvl0_pair = level0_brox(dev)
     emit(phase="level0_kernels", batch=1, shape=[NY, NX], **lvl0_pair)
+    emit(phase="brox_sor_stream_timing", **level0_brox_stream(dev))
     lvl0.update(lvl0_pair)
     lvl0["brox_terms"] = brox_terms_timing(dev)
     emit(phase="brox_terms_timing", **lvl0["brox_terms"])

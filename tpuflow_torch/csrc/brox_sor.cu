@@ -53,26 +53,71 @@
 //     neighbours read consecutive words, free of bank conflicts.
 //
 // (b) "stream", for systems whose tiles outnumber the blocks the device
-//     can hold at once (B = 2 at 436x1024): three launches per sweep,
-//       brox_sor_color x2, red then black, one thread per pixel of the
-//                      color; each block writes its partial err to a
-//                      fixed slot (no float atomics);
-//       stop_finalize  sums each sample's 2 x blocks partials in a fixed
-//                      order, then n += 1 and the stopping test
-//                      (common.cuh).
-//     Inactive samples return at once.  The host launches `sweeps`
-//     sweeps per call and checks `active` between calls
-//     (ops/sweeps.py).  Every sweep moves the 13 planes (52 bytes a
-//     pixel, 23.2 MB at level 0: 6.9 us at 3.35 TB/s), about what a
-//     launch costs at B = 1.
+//     can hold at once (B = 2 at 436x1024): one launch per sweep that
+//     updates both colors of haloed tiles, then stop_finalize
+//     (common.cuh), which sums each sample's per-tile partials in a
+//     fixed order (no float atomics), adds 1 to n and tests the stop.
+//     The host launches `sweeps` sweeps per call and reads `active`
+//     between calls (ops/sweeps.py).
+//       brox_sor_colors  a grid of the blocks the device holds at once
+//                        (occupancy x SMs); each block reads `active`,
+//                        lists the active samples and walks the (active
+//                        sample, tile) items, sample-major, block k
+//                        taking items k, k + grid, ...  So a stopped
+//                        sample costs no block, and a sweep in which
+//                        every sample has stopped costs one small launch.
+//                        A tile has a STY x STX interior.  Its block
+//                        copies du and dv over the interior and a halo
+//                        of SHALO into shared memory with cp.async, each
+//                        row split by column parity (even columns, then
+//                        odd), so a color's threads and their neighbours
+//                        read consecutive words, free of bank conflicts.
+//                        A thread owns ITEMS column pairs (r, 2q),
+//                        (r, 2q + 1) of the interior grown by one pixel:
+//                        one red and one black pixel each.  It loads both
+//                        pixels' nine constants into registers at once
+//                        (a float2 a plane where rows start on 8 bytes),
+//                        so neighbouring threads read neighbouring words
+//                        and every sector fetched is used whole, once a
+//                        sweep.  Red is updated on the interior grown by
+//                        one, black on the interior, so every red
+//                        neighbour that black reads was updated in the
+//                        block; every block recomputes its red ring from
+//                        the same inputs with the same code, so the
+//                        interior equals the global red-black sweep value
+//                        for value.  The interior goes to the other of two
+//                        state buffers (neighbouring tiles still read
+//                        this sweep's inputs): a sample's current buffer
+//                        is the parity of its n, and a last launch
+//                        (brox_sor_color_settle) copies the samples that
+//                        end in `scratch` back.  Each tile writes its
+//                        summed squared update to its slot, sample-major.
+//     What bounds it: bytes.  A sweep must read du, dv and the nine
+//     constants and write du and dv: 13 planes, 52 bytes a pixel
+//     (2.97 GB at level 0 of B = 128 1024x436 pairs: 0.887 ms at 3.35
+//     TB/s), against 40 flops.  The halo re-reads come from the 50 MB L2
+//     (du, dv over 34 x 64 for a 30 x 60 interior: 1.21x; the
+//     constants over the red ring 1.10x), since the blocks in flight
+//     walk neighbouring tiles together.  Registers bound the blocks an
+//     SM holds (128 a thread: two blocks), and so the bytes in flight
+//     between a block's load and its next.  On an H100 (700 W) a
+//     level-0 sweep at B = 128 takes 1.355 ms, 1.53x that bound.  The
+//     design it replaces launched each color on its own, threads 2 px
+//     apart: every sector was fetched twice, half used each time, about
+//     104 bytes a pixel (2.033 ms), and a stopped sample still launched
+//     its blocks, which returned at once.
 //
 // Layout: state (B, 2, ny, nx) = (du, dv) and cst (B, 9, ny, nx) =
 // (Au, Av, Du, Dv, D, psi1, psi2, psi3, psi4), both contiguous; err (B,)
 // float; n (B,) int; route (a): partial (2, B, tiles) float; route (b):
-// partial (B, 2, blocks) float, active (B,) int.
+// scratch (B, 2, ny, nx) float, partial (B, tiles) float, active (B,)
+// int.
 
 #include <cooperative_groups.h>
 #include <cuda_pipeline.h>
+
+#include <algorithm>
+#include <cstdint>
 
 #include "common.cuh"
 
@@ -101,9 +146,19 @@ constexpr int RES_SMEM = RES_SCRATCH + 4 * (9 * CP + 2 * UP);
 static_assert(TX % 2 == 0 && SW % 2 == 0, "rows split by column parity");
 
 // route (b)
-constexpr int BX = 32;
-constexpr int BY = 8;
-constexpr int NT = BX * BY;
+constexpr int STY = 30;                 // interior rows
+constexpr int STX = 60;                 // interior columns (even: shared parity = image parity)
+constexpr int SHALO = 2;                // of du and dv
+constexpr int ST = 256;                 // threads
+constexpr int SSW = STX + 2 * SHALO;    // a du / dv row with its halo
+constexpr int SSH = SSW / 2;            // even columns of such a row, then odd
+constexpr int SROWS = STY + 2 * SHALO;  // du / dv rows
+// column pairs of the interior grown by one (the red ring), a thread's share
+constexpr int ITEMS = (STY + 2) * (STX / 2 + 2) / ST;
+
+static_assert(STX % 2 == 0 && ST % 32 == 0, "pairs, whole warps");
+static_assert(ITEMS * ST == (STY + 2) * (STX / 2 + 2), "every pair a thread");
+static_assert(SSH == 32, "a half row spans the 32 banks once");
 
 // ---------------------------------------------------------------- (a)
 
@@ -314,63 +369,275 @@ dim3 tile_grid(int B, int ny, int nx) {
 
 // ---------------------------------------------------------------- (b)
 
-// psi1*down + psi2*up + psi3*right + psi4*left with clamped indices
-__device__ __forceinline__ float divp(const float* f, const float* c,
-                                      size_t plane, int i, int j, int ny,
-                                      int nx) {
-  const float* row = f + (size_t)i * nx;
-  const float down = f[(size_t)(i < ny - 1 ? i + 1 : i) * nx + j];
-  const float up = f[(size_t)(i > 0 ? i - 1 : i) * nx + j];
-  const float right = row[j < nx - 1 ? j + 1 : j];
-  const float left = row[j > 0 ? j - 1 : j];
-  return c[5 * plane] * down + c[6 * plane] * up + c[7 * plane] * right +
-         c[8 * plane] * left;
+// du / dv word of tile pixel (r, c), r in -SHALO..STY+SHALO-1, c in
+// -SHALO..STX+SHALO-1
+__device__ __forceinline__ int qidx(int r, int c) {
+  return (r + SHALO) * SSW + ((c + SHALO) & 1) * SSH + ((c + SHALO) >> 1);
 }
 
-__global__ void brox_sor_color(float* __restrict__ state,
-                               const float* __restrict__ cst,
-                               const int* __restrict__ active,
-                               float* __restrict__ partial, int ny, int nx,
-                               int color, float alpha) {
-  __shared__ float shared[NT / 32];
-  const int b = blockIdx.z;
-  if (!active[b]) return;  // uniform over the block
-  const int i = blockIdx.y * BY + threadIdx.y;
-  const int j = 2 * (blockIdx.x * BX + threadIdx.x) + ((i + color) & 1);
-  float e = 0.0f;
-  if (i < ny && j < nx) {
-    const size_t plane = (size_t)ny * nx;
-    const size_t p = (size_t)i * nx + j;
-    float* du = state + (size_t)b * 2 * plane;
-    float* dv = du + plane;
-    const float* c = cst + (size_t)b * 9 * plane + p;
-    const float du0 = du[p];
-    const float dv0 = dv[p];
-    const float dd = c[4 * plane];
-    const float dpu = divp(du, c, plane, i, j, ny, nx);
-    const float rdu = 1.0f / fmaxf(c[2 * plane], D_FLOOR);
-    const float dun = ONE_MINUS_OMEGA * du0 +
-                      OMEGA * (c[0] - dd * dv0 + alpha * dpu) * rdu;
-    du[p] = dun;
-    const float dpv = divp(dv, c, plane, i, j, ny, nx);
-    const float rdv = 1.0f / fmaxf(c[3 * plane], D_FLOOR);
-    const float dvn = ONE_MINUS_OMEGA * dv0 +
-                      OMEGA * (c[plane] - dd * dun + alpha * dpv) * rdv;
-    dv[p] = dvn;
-    const float a = dun - du0;
-    const float bb = dvn - dv0;
-    e = a * a + bb * bb;
+// Updates tile pixel (r, c), image pixel (i, j), in shared memory with its
+// constants k = (Au, Av, Du, Dv, D, psi1..psi4); returns its squared
+// update.  The arithmetic of update_color, term for term.
+__device__ __forceinline__ float update_pixel(float* U, float* V,
+                                              const float* k, int r, int c,
+                                              int i, int j, int ny, int nx,
+                                              float alpha) {
+  const int up = i > 0 ? r - 1 : r;
+  const int dn = i < ny - 1 ? r + 1 : r;
+  const int lf = j > 0 ? c - 1 : c;
+  const int rt = j < nx - 1 ? c + 1 : c;
+  const int s = qidx(r, c);
+  const float du0 = U[s];
+  const float dv0 = V[s];
+  const float dpu = k[5] * U[qidx(dn, c)] + k[6] * U[qidx(up, c)] +
+                    k[7] * U[qidx(r, rt)] + k[8] * U[qidx(r, lf)];
+  const float rdu = 1.0f / fmaxf(k[2], D_FLOOR);
+  const float dun = ONE_MINUS_OMEGA * du0 +
+                    OMEGA * (k[0] - k[4] * dv0 + alpha * dpu) * rdu;
+  U[s] = dun;
+  const float dpv = k[5] * V[qidx(dn, c)] + k[6] * V[qidx(up, c)] +
+                    k[7] * V[qidx(r, rt)] + k[8] * V[qidx(r, lf)];
+  const float rdv = 1.0f / fmaxf(k[3], D_FLOOR);
+  const float dvn = ONE_MINUS_OMEGA * dv0 +
+                    OMEGA * (k[1] - k[4] * dun + alpha * dpv) * rdv;
+  V[s] = dvn;
+  const float a = dun - du0;
+  const float b = dvn - dv0;
+  return a * a + b * b;
+}
+
+// Item flags: the red pixel is updated, the black one is, the red one
+// lies in the interior, the red pixel is the right one of its pair.
+constexpr unsigned RED = 1, BLACK = 2, RED_IN = 4, RED_ODD = 8;
+
+// One sweep of one tile of sample b: reads (du, dv) from the sample's
+// current buffer, writes the interior to the other and the interior's
+// summed squared update to partial[b * tiles + tile].
+__device__ __forceinline__ void sweep_tile(
+    float* U, float* V, double* red, float* state, float* scratch,
+    const float* __restrict__ cst,
+    const int* __restrict__ n, float* __restrict__ partial, int b, int tile,
+    int ny, int nx, int tiles_x, int tiles, float alpha, bool vec) {
+  const int tid = threadIdx.x;
+  const size_t plane = (size_t)ny * nx;
+  // the current (du, dv) are in state after an even number of sweeps,
+  // in scratch after an odd one
+  const bool odd = n[b] & 1;
+  const float* src = (odd ? scratch : state) + (size_t)b * 2 * plane;
+  float* dst = (odd ? state : scratch) + (size_t)b * 2 * plane;
+  const float* c = cst + (size_t)b * 9 * plane;
+  const int ty = tile / tiles_x;
+  const int i0 = ty * STY;
+  const int j0 = (tile - ty * tiles_x) * STX;
+
+  // du, dv over the tile and its halo, a column pair a thread
+  for (int k = tid; k < SROWS * SSH; k += ST) {
+    const int r = k / SSH - SHALO;
+    const int cc = 2 * (k % SSH) - SHALO;
+    const int i = i0 + r;
+    const int j = j0 + cc;
+    if (i < 0 || i >= ny) continue;
+    const long long p = (long long)i * nx + j;
+    const int s = qidx(r, cc);  // even half; column cc + 1 is word s + SSH
+    if (j >= 0 && j < nx) {
+      __pipeline_memcpy_async(U + s, src + p, sizeof(float));
+      __pipeline_memcpy_async(V + s, src + plane + p, sizeof(float));
+    }
+    if (j + 1 >= 0 && j + 1 < nx) {
+      __pipeline_memcpy_async(U + s + SSH, src + p + 1, sizeof(float));
+      __pipeline_memcpy_async(V + s + SSH, src + plane + p + 1, sizeof(float));
+    }
   }
-  e = block_sum(e, shared);
-  if (threadIdx.x == 0 && threadIdx.y == 0)
-    partial[(((size_t)b * 2 + color) * gridDim.y + blockIdx.y) * gridDim.x +
-            blockIdx.x] = e;
+  __pipeline_commit();
+
+  // the pairs (r, 2q), (r, 2q + 1) of the interior grown by one, in the
+  // image: one red and one black pixel each, both pixels' constants in
+  // registers, loaded while the copies above are in flight
+  const int rlo = i0 > 0 ? -1 : 0;
+  const int rhi = min(STY, ny - 1 - i0);
+  const int qlo = j0 > 0 ? -1 : 0;
+  const int qhi = min(STX / 2, (nx - 1 - j0) >> 1);
+  const int w = qhi - qlo + 1;
+  const int count = (rhi - rlo + 1) * w;
+  float kr[ITEMS][9], kb[ITEMS][9];
+  int rr[ITEMS], cq[ITEMS];
+  unsigned fl[ITEMS];
+#pragma unroll
+  for (int s = 0; s < ITEMS; ++s) {
+    const int k = tid + s * ST;
+    fl[s] = 0;
+    rr[s] = 0;
+    cq[s] = 0;
+    if (k >= count) continue;
+    const int r = rlo + k / w;
+    const int q2 = 2 * (qlo + k % w);
+    const int par = (i0 + r) & 1;  // j0 is even: red where (r + c) has i's parity
+    const int cr = q2 + par;
+    const int cb = q2 + 1 - par;
+    const bool inner = r >= 0 && r < STY;
+    const bool ur = cr >= -1 && cr <= STX && j0 + cr < nx;
+    const bool ub = inner && cb >= 0 && cb < STX && j0 + cb < nx;
+    const bool ir = ur && inner && cr >= 0 && cr < STX;
+    rr[s] = r;
+    cq[s] = q2;
+    fl[s] = (ur ? RED : 0u) | (ub ? BLACK : 0u) | (ir ? RED_IN : 0u) |
+            (par ? RED_ODD : 0u);
+    const float* cp = c + (long long)(i0 + r) * nx + j0 + q2;
+    if (vec && ur && ub) {
+#pragma unroll
+      for (int m = 0; m < 9; ++m) {
+        const float2 x = __ldg(reinterpret_cast<const float2*>(cp + m * plane));
+        kr[s][m] = par ? x.y : x.x;
+        kb[s][m] = par ? x.x : x.y;
+      }
+    } else {
+      if (ur) {
+#pragma unroll
+        for (int m = 0; m < 9; ++m) kr[s][m] = __ldg(cp + m * plane + par);
+      }
+      if (ub) {
+#pragma unroll
+        for (int m = 0; m < 9; ++m) kb[s][m] = __ldg(cp + m * plane + 1 - par);
+      }
+    }
+  }
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  // red on the interior grown by one, then black on the interior: every
+  // red neighbour a black pixel reads was updated in this block
+  float e = 0.0f;
+#pragma unroll
+  for (int s = 0; s < ITEMS; ++s) {
+    if (fl[s] & RED) {
+      const int cr = cq[s] + ((fl[s] & RED_ODD) ? 1 : 0);
+      const float d2 = update_pixel(U, V, kr[s], rr[s], cr, i0 + rr[s],
+                                    j0 + cr, ny, nx, alpha);
+      if (fl[s] & RED_IN) e += d2;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int s = 0; s < ITEMS; ++s) {
+    if (fl[s] & BLACK) {
+      const int cb = cq[s] + ((fl[s] & RED_ODD) ? 0 : 1);
+      e += update_pixel(U, V, kb[s], rr[s], cb, i0 + rr[s], j0 + cb, ny, nx,
+                        alpha);
+    }
+  }
+
+  // the interior to the other buffer: each thread its own pixels, which
+  // no other thread of the block writes
+#pragma unroll
+  for (int s = 0; s < ITEMS; ++s) {
+    const bool ir = fl[s] & RED_IN;
+    const bool ub = fl[s] & BLACK;
+    if (!(ir || ub)) continue;
+    const int sl = qidx(rr[s], cq[s]);  // column 2q; 2q + 1 is sl + SSH
+    float* d = dst + (long long)(i0 + rr[s]) * nx + j0 + cq[s];
+    if (vec && ir && ub) {
+      *reinterpret_cast<float2*>(d) = make_float2(U[sl], U[sl + SSH]);
+      *reinterpret_cast<float2*>(d + plane) = make_float2(V[sl], V[sl + SSH]);
+    } else {
+      const int odd_red = (fl[s] & RED_ODD) ? 1 : 0;
+      if (ir) {
+        d[odd_red] = U[sl + odd_red * SSH];
+        d[plane + odd_red] = V[sl + odd_red * SSH];
+      }
+      if (ub) {
+        d[1 - odd_red] = U[sl + (1 - odd_red) * SSH];
+        d[plane + 1 - odd_red] = V[sl + (1 - odd_red) * SSH];
+      }
+    }
+  }
+  // its barrier also keeps the next tile's copies off U and V until every
+  // thread has written its pixels out
+  const double total = block_sum((double)e, red);
+  if (tid == 0) partial[(size_t)b * tiles + tile] = (float)total;
 }
 
-dim3 color_grid(int B, int ny, int nx) {
-  // one grid for both colors: a row holds at most (nx + 1) / 2 of either
-  const int wc = (nx + 1) / 2;
-  return dim3((wc + BX - 1) / BX, (ny + BY - 1) / BY, B);
+// One sweep of every active sample: a grid of the blocks the device holds
+// at once walks the (active sample, tile) items, sample-major, block k
+// taking items k, k + gridDim.x, ...
+__global__ void __launch_bounds__(ST, 2)
+brox_sor_colors(float* state, float* scratch, const float* __restrict__ cst,
+                const int* __restrict__ n, const int* __restrict__ active,
+                float* __restrict__ partial, int B, int ny, int nx,
+                int tiles_x, int tiles, float alpha, int vec) {
+  __shared__ float U[SROWS * SSW];
+  __shared__ float V[SROWS * SSW];
+  __shared__ double red[ST / 32];
+  __shared__ int s_list[ST];
+  __shared__ int s_warp[ST / 32];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long G = gridDim.x;
+  long long base = 0;  // the first item of the chunk
+  for (int c0 = 0; c0 < B; c0 += ST) {
+    // this chunk's active samples, in order
+    const int b = c0 + tid;
+    const bool a = b < B && active[b];
+    const unsigned ballot = __ballot_sync(0xffffffffu, a);
+    if (lane == 0) s_warp[warp] = __popc(ballot);
+    __syncthreads();
+    int off = 0, m = 0;
+#pragma unroll
+    for (int k = 0; k < ST / 32; ++k) {
+      off += k < warp ? s_warp[k] : 0;
+      m += s_warp[k];
+    }
+    if (a) s_list[off + __popc(ballot & ((1u << lane) - 1u))] = b;
+    __syncthreads();
+    const long long items = (long long)m * tiles;
+    for (long long it = base + ((long long)blockIdx.x - base % G + G) % G;
+         it < base + items; it += G) {
+      const int k = (int)((it - base) / tiles);
+      sweep_tile(U, V, red, state, scratch, cst, n,
+                 partial, s_list[k], (int)(it - base - (long long)k * tiles),
+                 ny, nx, tiles_x, tiles, alpha, vec);
+    }
+    base += items;
+    __syncthreads();  // s_list and s_warp are the next chunk's
+  }
+}
+
+// Copies scratch to state for the samples whose (du, dv) ended there.
+__global__ void brox_sor_color_settle(float* __restrict__ state,
+                                      const float* __restrict__ scratch,
+                                      const int* __restrict__ n, size_t len) {
+  const int b = blockIdx.y;
+  if (!(n[b] & 1)) return;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < len;
+       i += (size_t)gridDim.x * blockDim.x)
+    state[(size_t)b * len + i] = scratch[(size_t)b * len + i];
+}
+
+// The blocks of brox_sor_colors the current device holds at once
+// (occupancy x SMs), asked once per device.
+cudaError_t stream_grid(int* grid) {
+  static int known[64] = {};
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 64 && known[dev] > 0) {
+    *grid = known[dev];
+    return cudaSuccess;
+  }
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, brox_sor_colors,
+                                                      ST, 0);
+  if (e != cudaSuccess) return e;
+  *grid = std::max(per_sm, 1) * sms;
+  if (dev < 64) known[dev] = *grid;
+  return cudaSuccess;
+}
+
+int stream_tiles_x(int nx) { return (nx + STX - 1) / STX; }
+
+int stream_tiles(int ny, int nx) {
+  return ((ny + STY - 1) / STY) * stream_tiles_x(nx);
 }
 
 }  // namespace
@@ -436,40 +703,53 @@ extern "C" int brox_sor_limits(int* out) {
   return 0;
 }
 
-// Route (b): runs `sweeps` sweeps (each a red launch, a black launch and
-// a finalize) on `stream`.  `partial_len` is the length of `partial`,
-// checked against the launch grid.  Returns the cudaError_t of the
+// Route (b): runs `sweeps` sweeps (each a brox_sor_colors launch and a
+// stop_finalize) on `stream`.  A sample's current (du, dv) are in `state`
+// after an even number of sweeps and in `scratch` after an odd one;
+// brox_sor_finish settles them.  `partial_len` is the length of
+// `partial`, checked against the tiles.  Returns the cudaError_t of the
 // launches.
-extern "C" int brox_sor_run(float* state, const float* cst, float* partial,
-                            long long partial_len, float* err, int* n,
-                            int* active, int B, int ny, int nx, float thresh,
-                            int max_iter, float alpha, int sweeps,
-                            void* stream) {
-  const dim3 block(BX, BY);
-  const dim3 grid = color_grid(B, ny, nx);
-  const int nparts = 2 * grid.x * grid.y;
-  if (partial_len < (long long)nparts * B) return (int)cudaErrorInvalidValue;
+extern "C" int brox_sor_run(float* state, float* scratch, const float* cst,
+                            float* partial, long long partial_len, float* err,
+                            int* n, int* active, int B, int ny, int nx,
+                            float thresh, int max_iter, float alpha,
+                            int sweeps, void* stream) {
+  const int tiles = stream_tiles(ny, nx);
+  if (partial_len < (long long)tiles * B) return (int)cudaErrorInvalidValue;
+  int grid = 0;
+  const cudaError_t e = stream_grid(&grid);
+  if (e != cudaSuccess) return (int)e;
+  // pairs as float2 where every row starts on 8 bytes
+  const int vec = nx % 2 == 0 && (uintptr_t)state % 8 == 0 &&
+                  (uintptr_t)scratch % 8 == 0 && (uintptr_t)cst % 8 == 0;
   cudaStream_t s = (cudaStream_t)stream;
   for (int k = 0; k < sweeps; ++k) {
-    for (int color = 0; color < 2; ++color)
-      brox_sor_color<<<grid, block, 0, s>>>(state, cst, active, partial, ny,
-                                            nx, color, alpha);
-    stop_finalize<<<B, FIN_THREADS, 0, s>>>(partial, nparts, err, n, active,
+    brox_sor_colors<<<grid, ST, 0, s>>>(state, scratch, cst, n, active,
+                                        partial, B, ny, nx, stream_tiles_x(nx),
+                                        tiles, alpha, vec);
+    stop_finalize<<<B, FIN_THREADS, 0, s>>>(partial, tiles, err, n, active,
                                             thresh, max_iter);
   }
   return (int)cudaGetLastError();
 }
 
-// Length of route (b)'s `partial` buffer for a (B, ny, nx) launch.
-extern "C" int brox_sor_partial_len(int B, int ny, int nx) {
-  const dim3 grid = color_grid(B, ny, nx);
-  return 2 * grid.x * grid.y * B;
+// Route (b)'s end: the samples whose sweep count is odd hold their
+// (du, dv) in scratch; copy them to state.
+extern "C" int brox_sor_finish(float* state, const float* scratch,
+                               const int* n, int B, int ny, int nx,
+                               void* stream) {
+  const size_t len = (size_t)2 * ny * nx;
+  const unsigned blocks = (unsigned)std::min<size_t>((len + 255) / 256, 1024);
+  brox_sor_color_settle<<<dim3(blocks, B), 256, 0, (cudaStream_t)stream>>>(
+      state, scratch, n, len);
+  return (int)cudaGetLastError();
 }
 
 // The geometry the wrapper states: 0 -> route (a)'s tile rows, 1 -> its
 // tile columns, 2 -> its halo, 3 -> its threads, 4 -> its scratch bytes,
-// 5 -> its shared memory per block in bytes.
+// 5 -> its shared memory per block in bytes; 6 -> route (b)'s interior
+// rows, 7 -> its interior columns, 8 -> its halo, 9 -> its threads.
 extern "C" int brox_sor_geometry(int what) {
-  const int g[] = {TY, TX, HALO, RT, RES_SCRATCH, RES_SMEM};
-  return what >= 0 && what < 6 ? g[what] : -1;
+  const int g[] = {TY, TX, HALO, RT, RES_SCRATCH, RES_SMEM, STY, STX, SHALO, ST};
+  return what >= 0 && what < 10 ? g[what] : -1;
 }

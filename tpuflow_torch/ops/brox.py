@@ -30,12 +30,17 @@ picks from the system's size and the device's limits (see the note in
 the source): "resident", the whole solve in one cooperative launch with
 the level in the SMs' shared memory, one block per tile of `TILE`
 pixels (halo `HALO`) per sample and the stop tested on the device after
-every sweep; and "stream", three launches per sweep with a host read of
-`active` every CHECK_EVERY sweeps (ops/sweeps.py), for systems whose
-tiles outnumber the blocks the device holds at once.  No switch picks a
-route, and a refused launch raises.  The kernel sums `err` in another
-order than PyTorch, so a sample's `n` may differ from the plain
-version's by one where `err` lands next to `thresh`.
+every sweep; and "stream", for systems whose tiles outnumber the blocks
+the device holds at once: one launch per sweep that updates both colors
+of every active sample's tiles of `STREAM_TILE` pixels (halo
+`STREAM_HALO`, red on the interior grown by one, black on the interior)
+into the other of two state buffers, then the stop's fixed-order sum,
+with a host read of `active` every CHECK_EVERY sweeps (ops/sweeps.py)
+and a last launch that settles the samples that end in the scratch
+buffer.  No switch picks a route, and a refused launch raises.  The
+kernel sums `err` in another order than PyTorch, so a sample's `n` may
+differ from the plain version's by one where `err` lands next to
+`thresh`.
 """
 
 import ctypes
@@ -47,7 +52,7 @@ import torch.nn.functional as F
 from tpuflow_torch import _build
 from tpuflow_torch._device import check_inputs, on_card
 from tpuflow_torch.ops.hs import D_FLOOR
-from tpuflow_torch.ops.sweeps import run_until_stopped, unsolved
+from tpuflow_torch.ops.sweeps import launch_until_stopped, unsolved
 from tpuflow_torch.utils.trace import count, span
 
 SOR_OMEGA = 1.9  # reference src/brox_optic_flow_spatial.cpp:25
@@ -58,19 +63,23 @@ SOR_OMEGA = 1.9  # reference src/brox_optic_flow_spatial.cpp:25
 # most samples a launch takes), the bytes of shared scratch before the
 # planes, and a block's shared memory: the scratch, the 9 constants
 # (Au, Av, rdu, rdv, D, psi1-psi4) over the tile, du and dv over the
-# tile and its halo
+# tile and its halo; route "stream"'s tile interior (rows, columns), the
+# halo of du and dv in shared memory, and the threads of a block
 TILE = (64, 64)
 HALO = 1
 RESIDENT_THREADS = 512
 RESIDENT_SCRATCH = 6400
 RESIDENT_SMEM = RESIDENT_SCRATCH + 4 * (
     9 * TILE[0] * TILE[1] + 2 * (TILE[0] + 2 * HALO) * (TILE[1] + 2 * HALO))
+STREAM_TILE = (30, 60)
+STREAM_HALO = 2
+STREAM_THREADS = 256
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "brox_sor_run": [_P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I, _I,
-                     _F, _I, _F, _I, _P],
-    "brox_sor_partial_len": [_I, _I, _I],
+    "brox_sor_run": [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I,
+                     _I, _F, _I, _F, _I, _P],
+    "brox_sor_finish": [_P, _P, _P, _I, _I, _I, _P],
     "brox_sor_solve": [_P, _P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _F,
                        _I, _F, _P],
     "brox_sor_limits": [_P],
@@ -78,9 +87,10 @@ _SIGNATURES = {
 }
 
 
-def tile_count(ny, nx):
-    """Route "resident"'s tiles (blocks per sample) of an (ny, nx) level."""
-    return -(-ny // TILE[0]) * -(-nx // TILE[1])
+def tile_count(ny, nx, tile=TILE):
+    """The tiles of `tile` pixels (route "resident"'s blocks per sample by
+    default) that cover an (ny, nx) level."""
+    return -(-ny // tile[0]) * -(-nx // tile[1])
 
 
 def brox_sor_route(B, ny, nx, smem_optin, resident_blocks):
@@ -89,7 +99,7 @@ def brox_sor_route(B, ny, nx, smem_optin, resident_blocks):
     holds `resident_blocks` blocks of route "resident" at once:
     "resident" (the whole solve in one launch, one block per tile per
     sample) where a block fits and every block is resident at once, else
-    "stream" (three launches per sweep)."""
+    "stream" (one launch per sweep for both colors)."""
     fits = (RESIDENT_SMEM <= smem_optin and B <= RESIDENT_THREADS
             and B * tile_count(ny, nx) <= resident_blocks)
     return "resident" if fits else "stream"
@@ -156,7 +166,8 @@ def brox_sor_error_plain(state, const, thresh, max_iter, alpha):
 def _library():
     return _build.load("brox_sor", _SIGNATURES, (
         "brox_sor_geometry", (*TILE, HALO, RESIDENT_THREADS, RESIDENT_SCRATCH,
-                              RESIDENT_SMEM)))
+                              RESIDENT_SMEM, *STREAM_TILE, STREAM_HALO,
+                              STREAM_THREADS)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -195,13 +206,33 @@ def _solve_resident(state, const, thresh, max_iter, alpha):
 
 
 def _solve_stream(state, const, thresh, max_iter, alpha):
-    """Route "stream" on CUDA tensors: three launches per sweep, the
-    host reading `active` every CHECK_EVERY sweeps."""
-    _library()
-    return run_until_stopped("brox_sor_error.stream", "k7", "brox_sor",
-                             _SIGNATURES, "brox_sor_run",
-                             "brox_sor_partial_len", state, const, thresh,
-                             max_iter, (alpha,))
+    """Route "stream" on CUDA tensors: one launch per sweep for both
+    colors, then the stop's sum; the host reads `active` every
+    CHECK_EVERY sweeps, and a last launch copies the samples whose state
+    ended in the scratch buffer (odd n) back."""
+    state, err, n = unsolved(state)
+    B, _, ny, nx = state.shape
+    dev = state.device
+    lib = _library()
+    scratch = torch.empty_like(state)
+    partial = torch.empty(B * tile_count(ny, nx, STREAM_TILE),
+                          dtype=torch.float32, device=dev)
+    active = torch.ones((B,), dtype=torch.int32, device=dev)
+    count("calls.brox_sor_error.stream")
+
+    def sweeps(iters):
+        _build.launch(lib, "brox_sor_run", state, scratch, const, partial,
+                      partial.numel(), err, n, active, B, ny, nx,
+                      float(thresh), int(max_iter), float(alpha), iters,
+                      device=dev)
+        count("iters.k7", iters)
+
+    launch_until_stopped(sweeps, active, max_iter)
+    # the settle is K7 work too: a second span `solve`, after the loop's
+    with span("solve"):
+        _build.launch(lib, "brox_sor_finish", state, scratch, n, B, ny, nx,
+                      device=dev)
+    return state, err, n
 
 
 def brox_sor_error(state, const, thresh, max_iter, alpha):
@@ -210,8 +241,9 @@ def brox_sor_error(state, const, thresh, max_iter, alpha):
     state: (B, 2, ny, nx) = (du, dv) float32 contiguous, updated in place;
     const: (B, 9, ny, nx) = (Au, Av, Du, Dv, D, psi1, psi2, psi3, psi4)
     float32 contiguous; thresh, max_iter, alpha: Python scalars.
-    Returns (state, err (B,) float32, n (B,) int32).  A solve is one
-    span `solve` on every route, the plain version's too."""
+    Returns (state, err (B,) float32, n (B,) int32).  Every launch of a
+    solve lies in a span `solve`: one on route "resident" and in the plain
+    version, two on route "stream" (the sweeps' loop, then the settle)."""
     check_inputs("brox_sor_error", state=(state, ("B", 2, "ny", "nx")),
                  const=(const, ("B", 9, "ny", "nx")))
     if not on_card(state):
