@@ -27,7 +27,9 @@ then runs these phases, each printing one JSON line:
      K7 solves the system that `brox_scale` assembles (K9) from
      the synthetic flow.  K9 (brox_terms) at the five Brox levels, B=128
      and B=1, on the first inner iteration (a nonzero state it must not
-     read) and a later one, each plane within 1e-5 of its scale.  K5 (warp_planes) and K5p (warp_planes_shift, with
+     read) and a later one, each plane within 1e-5 of its scale; K10
+     (expo_terms) the same, each sample with a DF-AUTO diffusivity of
+     its own, bit for bit.  K5 (warp_planes) and K5p (warp_planes_shift, with
      border_out on and off) warp Brox's six derivative planes at each of
      the five Brox levels with its dmax, at level 0 also 3 planes (K5p
      without border_out: tvl1occflow's level 0) and 18 (robust-expo
@@ -79,7 +81,9 @@ then runs these phases, each printing one JSON line:
      K7's sweeps launched against what the stats imply, 15 K9 calls a
      level (75 a call), the call's
      seconds and peak memory, and samples 0, 1, 63 and 127 against
-     `brox_spatial` on their pairs (EPE <= 0.01);
+     `brox_spatial` on their pairs (EPE <= 0.01); then
+     `robust_expo_batched` (method 3, DF-AUTO) the same way, with 15 K10
+     calls a level and no K9, its samples against `robust_expo`;
   5. timing at the benchmark geometry: the batched engines at B=128
      (fields/s), the single-pair solvers on one pair (seconds per pair),
      each over 3 reps after one warm call (Brox temporal per volume and
@@ -101,7 +105,8 @@ then runs these phases, each printing one JSON line:
      K5p at every shape where the main paths launch them, with both plane
      counts a thread may take (K5 also at B = 8, Brox temporal's level
      0), and K9 at level 0 at B=128 by graph against its bytes bound (at
-     most 3 times it).  A kernel read below its bound fails the run.  Then K8 (the
+     most 3 times it), K10 likewise (at most 2 times it, K9 on the same
+     inputs beside it).  A kernel read below its bound fails the run.  Then K8 (the
      pyramid, `check_pyramid`) on the B=128 timing pairs against the
      plain pyramid on the card: every level of both images bit for bit
      at zfactor 0.5 and within 1e-4 at 0.75, one launch a level, and its
@@ -190,6 +195,13 @@ K9_PLANES_LATER = 13 + 9
 K9_FLOPS_PX = 117
 # K9 at level 0, B=128, may take at most this many times its bytes bound
 K9_X_BOUND = 3.0
+# K10 reads K9's planes and expo (21, 23 with du and dv); its operations:
+# K9's and the product of expo in psi_s
+K10_PLANES_FIRST = K9_PLANES_FIRST + 1
+K10_PLANES_LATER = K9_PLANES_LATER + 1
+K10_FLOPS_PX = K9_FLOPS_PX + 1
+# K10 at level 0, B=128, may take at most this many times its bytes bound
+K10_X_BOUND = 2.0
 # one K7 stream sweep at level 0, B=128, may take at most this many times
 # the bound of its 13 planes
 K7_STREAM_X_BOUND = 2.0
@@ -697,6 +709,113 @@ def brox_terms_timing(dev):
     return k
 
 
+def expo_terms_case(dev, ny, nx, dmax, batch):
+    """K10's inputs (u, v, expo, I1, I1x, I1y, warped, state): K9's
+    (`brox_terms_case`), and sample k's DF-AUTO diffusivity (method 3 at
+    robust_expo_methods' defaults) of I1's gradient times 1 + k / batch,
+    so that each sample has a diffusivity of its own."""
+    from tpuflow_torch.models.robust_expo import (DEFAULT_ALPHA,
+                                                  DEFAULT_LAMBDA,
+                                                  exponential_diffusivity)
+
+    u, v, I1, I1x, I1y, warped, state = brox_terms_case(dev, ny, nx, dmax,
+                                                        batch)
+    k = torch.arange(batch, dtype=torch.float32, device=dev)[:, None, None]
+    expo = exponential_diffusivity(I1x * (1 + k / batch), I1y * (1 + k / batch),
+                                   3, DEFAULT_ALPHA, DEFAULT_LAMBDA,
+                                   channel_dim=None)
+    return u, v, expo.contiguous(), I1, I1x, I1y, warped, state
+
+
+def check_expo_terms(dev):
+    """K10 (`expo_terms`) against its plain version on the card at every
+    Brox level of 1024x436, for B_TIME samples and for one, on the first
+    inner iteration (the state holds a nonzero increment that K10 must
+    not read) and on a later one: bit for bit (the kernel rounds every
+    operation as the plain version does, in its order), one launch a
+    call; and a CUDA float64 call refused with a ValueError."""
+    from tpuflow_torch.models.robust_expo import DEFAULT_ALPHA, DEFAULT_GAMMA
+    from tpuflow_torch.ops.brox_terms import expo_terms, expo_terms_plain
+
+    out = []
+    for s, (nx, ny) in enumerate(brox_levels()):
+        for batch in (B_TIME, 1):
+            args = expo_terms_case(dev, ny, nx, brox_dmax(s), batch)
+            for first in (True, False):
+                reset()
+                got = expo_terms(*args, torch.empty((batch, 9, ny, nx),
+                                                    device=dev),
+                                 DEFAULT_ALPHA, DEFAULT_GAMMA, first)
+                launches = since_reset("calls.expo_terms")
+                ref = expo_terms_plain(*args, torch.empty_like(got),
+                                       DEFAULT_ALPHA, DEFAULT_GAMMA, first)
+                torch.cuda.synchronize()
+                rel, err = rel_err(got, ref)
+                c = {"shape": [batch, ny, nx], "first": first,
+                     "launches": launches, "max_abs_err": err,
+                     "max_rel_err": rel, "bit_equal": bool(torch.equal(got, ref)),
+                     "finite": bool(torch.isfinite(got).all())}
+                out.append(c)
+                if not (c["bit_equal"] and launches == 1 and c["finite"]):
+                    raise AssertionError(f"expo_terms disagrees with its "
+                                         f"plain version: {c}")
+                del got, ref
+            del args
+    args = expo_terms_case(dev, 28, 64, 3, 2)
+    try:
+        expo_terms(*(t.double() for t in args),
+                   torch.empty((2, 9, 28, 64), dtype=torch.float64, device=dev),
+                   DEFAULT_ALPHA, DEFAULT_GAMMA, True)
+        refused = False
+    except ValueError:
+        refused = True
+    out.append({"float64_refused": refused})
+    if not refused:
+        raise AssertionError("expo_terms: a CUDA float64 call ran")
+    return out
+
+
+def expo_terms_timing(dev):
+    """K10 at level 0 of B_TIME 1024x436 pairs, the cell's shape: one
+    launch on the first inner iteration and on a later one, by
+    `graph_ms` (not L2-flushed, as K9), with the profiler's median beside
+    it, against the bytes each moves, K9 on the same inputs beside it;
+    and the plain version's device time (CUDA events).  Fails above
+    K10_X_BOUND times the bound or below the bound."""
+    from tpuflow_torch.data import NX, NY
+    from tpuflow_torch.models.robust_expo import DEFAULT_ALPHA, DEFAULT_GAMMA
+    from tpuflow_torch.ops.brox_terms import (brox_terms, expo_terms,
+                                              expo_terms_plain)
+
+    args = expo_terms_case(dev, NY, NX, BROX_DMAX0, B_TIME)
+    const = torch.empty((B_TIME, 9, NY, NX), device=dev)
+    px = B_TIME * NY * NX
+
+    def k10(first):
+        return expo_terms(*args, const, DEFAULT_ALPHA, DEFAULT_GAMMA, first)
+
+    k = {"unit": f"one launch, B={B_TIME} at {NX}x{NY} (level 0)"}
+    k["ms"] = graph_ms(lambda: k10(True), 10, False)
+    k["profiler_ms"], k["profiler_us"] = device_ms(
+        lambda: k10(True), 10, {"expo_terms_kernel": 1}, flush_l2=False)
+    k["bound_ms"], k["bound_by"] = bound_ms(px, K10_PLANES_FIRST, K10_FLOPS_PX)
+    k["x_bound"] = k["ms"] / k["bound_ms"]
+    k["later_ms"] = graph_ms(lambda: k10(False), 10, False)
+    k["later_bound_ms"] = bound_ms(px, K10_PLANES_LATER, K10_FLOPS_PX)[0]
+    k["later_x_bound"] = k["later_ms"] / k["later_bound_ms"]
+    no_expo = args[:2] + args[3:]
+    k["k9_ms"] = graph_ms(lambda: brox_terms(
+        *no_expo, const, DEFAULT_ALPHA, DEFAULT_GAMMA, True), 10, False)
+    k["plain_ms"] = time_ms(lambda: expo_terms_plain(
+        *args, const, DEFAULT_ALPHA, DEFAULT_GAMMA, True), 3)
+    if not (k["bound_ms"] <= k["ms"] <= K10_X_BOUND * k["bound_ms"]
+            and k["later_bound_ms"] <= k["later_ms"]
+            <= K10_X_BOUND * k["later_bound_ms"]):
+        raise AssertionError(f"expo_terms at level 0 outside [1, "
+                             f"{K10_X_BOUND}] times its bound: {k}")
+    return k
+
+
 def check_brox_sor(dev, ny, nx, dmax, batch=1):
     """K7 against its plain version on a Brox system, naming the route
     the wrapper takes: 8 fixed sweeps, then stop="error" at the solver's
@@ -1188,30 +1307,32 @@ def pair_main_path(dev, counters, engine, synth_bound, expect,
     return out
 
 
-# the batched Brox path against the single-pair one on the same pairs:
-# K7 takes route "stream" there and "resident" here, which sum each
+# the batched Brox-family paths against the single-pair ones on the same
+# pairs: K7 takes route "stream" there and "resident" here, which sum each
 # solve's error in other orders, so a solve may stop a sweep apart
 # (about 1e-4 px a pixel at tol 1e-4), which the levels above magnify;
 # the bound is the one the pair paths' kernels hold against their plain
-# versions, and a batching fault (a sample's flow, stop or pyramid mixed
-# with another's) lands far above it
+# versions, and a batching fault (a sample's flow, stop, diffusivity or
+# pyramid mixed with another's) lands far above it
 BATCHED_BROX_EPE = 0.01
 BATCHED_BROX_SAMPLES = (0, 1, 63, 127)
 
 
-def batched_brox_path(dev, counters, I0, I1):
-    """`brox_spatial_batched` on the B_TIME timing pairs at 1024x436 at the
-    reference CLI defaults, with its stats, each level's K7 route and
-    K5 / K5p launches recorded as the level is solved: per level 15 K7
-    calls on the route `device_route` gives B_TIME systems of the level
-    (expected: "stream" at levels 0-3, "resident" at level 4), 15 warp
-    launches (K5 at levels of at least 96x96 px, K5p below), and K7's
-    `iters.k7` the sweeps the stats imply (route "stream" rounds each
-    solve's slowest sample up to CHECK_EVERY), 15 K9 calls a level (75 a
-    call); then a few samples against `brox_spatial` on their pairs
-    (BATCHED_BROX_EPE)."""
-    from tpuflow_torch import brox_spatial, brox_spatial_batched
+def batched_brox_path(dev, counters, I0, I1, engine, pair, terms, **kw):
+    """`engine` (`brox_spatial_batched`, or `robust_expo_batched` with
+    its system `terms` K10) on the B_TIME timing pairs at 1024x436 at the
+    reference CLI defaults and `kw`, with its stats, each level's K7
+    route, K5 / K5p and `terms` launches recorded as the level is
+    solved: per level 15 K7 calls on the route `device_route` gives
+    B_TIME systems of the level (expected: "stream" at levels 0-3,
+    "resident" at level 4), 15 warp launches (K5 at levels of at least
+    96x96 px, K5p below), and K7's `iters.k7` the sweeps the stats imply
+    (route "stream" rounds each solve's slowest sample up to
+    CHECK_EVERY), 15 `terms` calls a level (K9 or K10; 75 a call) and
+    none of the other's; then a few samples against `pair` (the
+    single-pair solver) on their pairs (BATCHED_BROX_EPE)."""
     from tpuflow_torch.ops.brox import device_route
+    from tpuflow_torch.ops.brox_terms import brox_terms, expo_terms
     from tpuflow_torch.ops.interp import K5_MIN_PIXELS
     from tpuflow_torch.ops.sweeps import CHECK_EVERY
     from tpuflow_torch.ops.warp import (device_group, warp_planes_batched,
@@ -1221,6 +1342,7 @@ def batched_brox_path(dev, counters, I0, I1):
     scale_fn = bs.brox_scale
     B = I0.shape[0]
     per_level = []
+    other = expo_terms if terms is brox_terms else brox_terms
 
     def recorded(l1, *args, **kw):
         before = trace_counters()
@@ -1234,8 +1356,9 @@ def batched_brox_path(dev, counters, I0, I1):
                          - before.get(f"calls.brox_sor_error.{r}", 0)
                          for r in K7_ROUTES},
             "iters_k7": after.get("iters.k7", 0) - before.get("iters.k7", 0),
-            "k9_calls": (after.get("calls.brox_terms", 0)
-                         - before.get("calls.brox_terms", 0)),
+            "terms_calls": {f.__name__: (after.get(f"calls.{f.__name__}", 0)
+                                         - before.get(f"calls.{f.__name__}", 0))
+                            for f in (terms, other)},
             "warps": {k: after.get(k, 0) - before.get(k, 0)
                       for k in after if k.startswith("calls.warp_planes")
                       and after.get(k, 0) != before.get(k, 0)}})
@@ -1244,7 +1367,7 @@ def batched_brox_path(dev, counters, I0, I1):
     torch.cuda.reset_peak_memory_stats()
     with swapped([(bs, "brox_scale", recorded)]):
         (u, v, stats), seconds, launches = counted(
-            counters, lambda: brox_spatial_batched(I0, I1, with_stats=True))
+            counters, lambda: engine(I0, I1, with_stats=True, **kw))
     peak = torch.cuda.max_memory_allocated()
     levels = dict(zip(sorted(stats["iterations"], reverse=True), per_level))
     wrong = []
@@ -1262,27 +1385,28 @@ def batched_brox_path(dev, counters, I0, I1):
                              for r in K7_ROUTES},
                 "iters_k7": (lv["sweeps_launched"]
                              if lv["route_expected"] == "stream" else 0),
-                "k9_calls": 15,
+                "terms_calls": {terms.__name__: 15, other.__name__: 0},
                 "warps": {f"calls.{kernel.__name__}.g{group}": 15}}
         if any(lv[k] != w for k, w in want.items()):
             wrong.append((s, want))
     pairs_epe = {}
     for k in BATCHED_BROX_SAMPLES:
-        pu, pv = brox_spatial(I0[k], I1[k])
+        pu, pv = pair(I0[k], I1[k], **kw)
         pairs_epe[k] = epe(u[k], v[k], pu, pv)
+    name = engine.__name__
     out = {"shape": list(I0.shape), "seconds": seconds,
            "fields_per_s": B / seconds, "max_memory_allocated_bytes": peak,
            "launches": launches, "levels": {str(s): lv
                                              for s, lv in levels.items()},
            "epe_vs_pair": pairs_epe}
-    if wrong or launches["brox_terms"] != 15 * len(levels):
-        raise AssertionError(f"batched Brox: routes, K7 sweeps, K9 calls or "
+    if wrong or launches[terms.__name__] != 15 * len(levels):
+        raise AssertionError(f"{name}: routes, K7 sweeps, system calls or "
                              f"warps {wrong}: {out}")
     if not all(e <= BATCHED_BROX_EPE for e in pairs_epe.values()):
-        raise AssertionError(f"batched Brox: samples far from their pair "
-                             f"calls: {out}")
+        raise AssertionError(f"{name}: samples far from their pair calls: "
+                             f"{out}")
     if not bool(torch.isfinite(u).all() and torch.isfinite(v).all()):
-        raise AssertionError("batched Brox: flow not finite")
+        raise AssertionError(f"{name}: flow not finite")
     return out
 
 
@@ -3063,12 +3187,13 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    from tpuflow_torch import (_build, brox_spatial, brox_temporal,
-                               hs_classic_batched, hs_pyramidal_batched,
-                               robust_expo, tvl1_batched, tvl1occflow)
+    from tpuflow_torch import (_build, brox_spatial, brox_spatial_batched,
+                               brox_temporal, hs_classic_batched,
+                               hs_pyramidal_batched, robust_expo,
+                               robust_expo_batched, tvl1_batched, tvl1occflow)
     from tpuflow_torch.data import NX, NY, synth_sequence
     from tpuflow_torch.ops.brox import brox_sor_error
-    from tpuflow_torch.ops.brox_terms import brox_terms
+    from tpuflow_torch.ops.brox_terms import brox_terms, expo_terms
     from tpuflow_torch.ops.hs import hs_sor_error
     from tpuflow_torch.ops.hs_classic import hs_classic_fused
     from tpuflow_torch.ops.interp import K5_MIN_PIXELS
@@ -3133,6 +3258,8 @@ def main():
         # every Brox level at B_TIME and B=1, first and later inner
         # iteration
         "brox_terms": check_brox_terms(dev),
+        # K10 likewise, bit for bit
+        "expo_terms": check_expo_terms(dev),
     }
     for name, c in checks.items():
         emit(phase=f"{name}_vs_plain", checks=c)
@@ -3143,7 +3270,7 @@ def main():
 
     counters = (warp_const_batched, tvl1_iterate_error, warp_const_hs_batched,
                 hs_sor_error, warp_planes_batched, warp_planes_shift_batched,
-                hs_classic_fused, brox_sor_error, brox_terms)
+                hs_classic_fused, brox_sor_error, brox_terms, expo_terms)
     paths = {
         "tvl1": main_path(dev, counters, tvl1_batched,
                           (warp_const_batched, tvl1_iterate_error), 0.5,
@@ -3171,14 +3298,15 @@ def main():
     # one warp launch and one K7 call per outer iteration; the warp is K5
     # on levels of at least 96x96 px (0-2), K5p below (3-4): 45 + 30, 75;
     # Brox spatial's system is K9, one launch per K7 call (75), robust-
-    # expo forms its own
+    # expo's pair forms its own (K10 is the batched path's)
     levels = brox_levels()
     big = sum(nx * ny >= K5_MIN_PIXELS for nx, ny in levels)
     per_pair = {warp_planes_batched: 15 * big,
                 warp_planes_shift_batched: 15 * (len(levels) - big),
                 brox_sor_error: 15 * len(levels)}
-    per_pair = {"brox_spatial": {**per_pair, brox_terms: 15 * len(levels)},
-                "robust_expo": {**per_pair, brox_terms: 0}}
+    per_pair = {"brox_spatial": {**per_pair, brox_terms: 15 * len(levels),
+                                 expo_terms: 0},
+                "robust_expo": {**per_pair, brox_terms: 0, expo_terms: 0}}
     # and each level's warps with the planes a thread of K5 or K5p warps
     # there
     warp_groups = pair_warp_groups()
@@ -3227,7 +3355,15 @@ def main():
 
     I0, I1 = pairs(B_TIME, NY, NX, dev)
     emit(phase="main_path_brox_spatial_batched",
-         **batched_brox_path(dev, counters, I0, I1))
+         **batched_brox_path(dev, counters, I0, I1, brox_spatial_batched,
+                             brox_spatial, brox_terms))
+    # robust-expo's cell: DF-AUTO, the diffusivity of each sample's own
+    # gradient histogram
+    paths["robust_expo_batched"] = batched_brox_path(
+        dev, counters, I0, I1, robust_expo_batched, robust_expo, expo_terms,
+        method_type=3)
+    emit(phase="main_path_robust_expo_batched",
+         **paths["robust_expo_batched"])
     timings = [
         engine_timing(tvl1_batched, I0, I1, counters, TVL1_GROUPS,
                       stop="error"),
@@ -3253,6 +3389,8 @@ def main():
     lvl0.update(lvl0_pair)
     lvl0["brox_terms"] = brox_terms_timing(dev)
     emit(phase="brox_terms_timing", **lvl0["brox_terms"])
+    lvl0["expo_terms"] = expo_terms_timing(dev)
+    emit(phase="expo_terms_timing", **lvl0["expo_terms"])
     warps = warp_timing(dev)
     emit(phase="warp_planes_timing", **warps)
     lvl0.update(warps)
@@ -3278,7 +3416,8 @@ def main():
                "hs_classic_fused": "hs_classic",
                "warp_planes_batched": "brox_spatial",
                "warp_planes_shift_batched": "brox_spatial",
-               "brox_sor_error": "brox_spatial", "brox_terms": "brox_spatial"}
+               "brox_sor_error": "brox_spatial", "brox_terms": "brox_spatial",
+               "expo_terms": "robust_expo_batched"}
     sources = {
         "warp_const_batched": ("warp_const.cu", "warp_pallas.py:90", "max_abs_err"),
         "tvl1_iterate_error": ("tvl1_iterate.cu", "tvl1_pallas.py:61",
@@ -3297,6 +3436,7 @@ def main():
         # K9 replaces no Pallas kernel: the JAX package leaves the
         # system's assembly to XLA
         "brox_terms": ("brox_terms.cu", None, "max_abs_err"),
+        "expo_terms": ("brox_terms.cu", None, "max_abs_err"),
     }
     kernels, below = [], []
     for fn in counters:

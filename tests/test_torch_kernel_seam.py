@@ -15,7 +15,7 @@ import torch
 
 from tpuflow_torch._device import KernelInputError, on_card
 from tpuflow_torch.ops.brox import brox_sor_error
-from tpuflow_torch.ops.brox_terms import brox_terms
+from tpuflow_torch.ops.brox_terms import brox_terms, expo_terms
 from tpuflow_torch.ops.hs import hs_sor_error
 from tpuflow_torch.ops.hs_classic import hs_classic_fused
 from tpuflow_torch.ops.pyramid_level import pyramid_level
@@ -59,6 +59,9 @@ WRAPPERS = {
     "brox_terms": (
         lambda t, _: brox_terms(*t, 0.5, 0.5, False),
         [PLANE] * 5 + [_k(6), _k(2), _k(9)]),
+    "expo_terms": (
+        lambda t, _: expo_terms(*t, 0.5, 0.5, False),
+        [PLANE] * 6 + [_k(6), _k(2), _k(9)]),
     "pyramid_level": (
         lambda t, _: pyramid_level(tuple(t), (0.5, 0.25)), [PLANE, PLANE]),
 }

@@ -8,7 +8,8 @@ sm_90a under `tpuflow_torch/csrc/`, built with nvcc at first use
 runs when the tensors lie on the CPU.
 
 Ported so far: the batched engines `tvl1_batched`,
-`hs_pyramidal_batched` and `brox_spatial_batched`
+`hs_pyramidal_batched`, `brox_spatial_batched` and
+`robust_expo_batched` (gray)
 (tpuflow_torch.models.batch) and
 `hs_classic_batched` (tpuflow_torch.models.hs_classic); the single-pair
 solvers `tvl1_multiscale`, `hs_pyramidal`, `hs_classic`,
@@ -30,7 +31,8 @@ __version__ = "0.1.0"
 
 from tpuflow_torch.config import default_dtype
 from tpuflow_torch.models.batch import (brox_spatial_batched,
-                                       hs_pyramidal_batched, tvl1_batched)
+                                       hs_pyramidal_batched,
+                                       robust_expo_batched, tvl1_batched)
 from tpuflow_torch.models.brox_spatial import brox_spatial
 from tpuflow_torch.models.brox_temporal import brox_temporal
 from tpuflow_torch.models.hs_classic import hs_classic, hs_classic_batched
@@ -42,5 +44,6 @@ from tpuflow_torch.utils.warmup import warmup
 
 __all__ = ["brox_spatial", "brox_spatial_batched", "brox_temporal",
            "default_dtype", "hs_classic", "hs_classic_batched", "hs_pyramidal",
-           "hs_pyramidal_batched", "robust_expo", "tvl1_batched",
+           "hs_pyramidal_batched", "robust_expo", "robust_expo_batched",
+           "tvl1_batched",
            "tvl1_multiscale", "tvl1occflow", "warmup"]

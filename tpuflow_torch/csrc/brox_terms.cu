@@ -1,5 +1,5 @@
 // K9: the Brox spatial system of one inner iteration in one launch, for
-// sm_90a.
+// sm_90a; and K10, robust-expo's system on gray samples, on K9's tiles.
 //
 // Replaces no Pallas kernel.  The JAX package leaves the assembly to XLA
 // (tpuflow/models/brox_spatial.py), which fuses it; in the port it was
@@ -43,6 +43,21 @@
 //   - with `first` set (the first inner iteration, du = dv = 0) du and
 //     dv are not read; psi_s is formed again at every inner iteration
 //     from u and v, which do not change inside an outer iteration.
+//
+// K10 (`expo_terms_kernel`) is the same body with EXPO set, for
+// robust-expo on gray samples (reference src/robust_expo_methods.cpp:
+// 161-455, src/robust_expo_smoothness.cpp:28-47;
+// tpuflow_torch/ops/brox_terms.py:expo_terms_plain):
+//   psi_s            expo / sqrt(expo * (ux^2 + uy^2 + vx^2 + vy^2)
+//                    + eps^2), expo the sample's exponential diffusivity
+//                    read at the clamped pixel over the halo of 1
+//   dI, dIx, dIy     I2w + I2wx du + I2wy dv - I1 (and so on): the
+//                    increment's terms first, I1 last
+//   Au, Av, Du, Dv, D  -psid (dif I2wx), psid (I2wx I2wx), g ((I2wxx +
+//                    I2wyy) I2wxy): each product of planes formed before
+//                    its weight multiplies it
+// It moves 21 float planes a pixel (23 with du and dv), the 20 of K9 and
+// expo, 1.43 ms for 128 pairs at 1024x436 at 3.35 TB/s.
 
 #include <cuda_runtime.h>
 
@@ -80,10 +95,12 @@ struct Params {
   int ny, nx;
   float alpha, gamma, eps2;
   int first;
+  const float* expo;     // (B, ny, nx), K10 only
 };
 
-__global__ void __launch_bounds__(THREADS)
-brox_terms_kernel(const Params p) {
+// One block's tile; EXPO: K10's system, else K9's.
+template <bool EXPO>
+__device__ __forceinline__ void terms_tile(const Params& p) {
   __shared__ float su[UH][UW];
   __shared__ float sv[UH][UW];
   __shared__ float sp[PH][PW];
@@ -140,8 +157,14 @@ brox_terms_kernel(const Params p) {
     const float uy = mul(0.5f, sub(su[ld][lx], su[lu][lx]));
     const float vx = mul(0.5f, sub(sv[ly][lr], sv[ly][ll]));
     const float vy = mul(0.5f, sub(sv[ld][lx], sv[lu][lx]));
-    sp[r][c] = rsqrt_ieee(add(add(add(add(mul(ux, ux), mul(uy, uy)),
-                                      mul(vx, vx)), mul(vy, vy)), p.eps2));
+    const float grad2 = add(add(add(mul(ux, ux), mul(uy, uy)), mul(vx, vx)),
+                            mul(vy, vy));
+    if constexpr (EXPO) {
+      const float e = __ldg(p.expo + b * plane + (long long)qy * nx + qx);
+      sp[r][c] = __fdiv_rn(e, __fsqrt_rn(add(mul(e, grad2), p.eps2)));
+    } else {
+      sp[r][c] = rsqrt_ieee(add(grad2, p.eps2));
+    }
   }
   __syncthreads();
 
@@ -179,32 +202,62 @@ brox_terms_kernel(const Params p) {
     // the data terms at the increment (du, dv)
     const float I2w = w[r][0], I2wx = w[r][1], I2wy = w[r][2];
     const float I2wxx = w[r][3], I2wxy = w[r][4], I2wyy = w[r][5];
-    const float dI = add(add(sub(I2w, i1[r]), mul(I2wx, du[r])), mul(I2wy, dv[r]));
-    const float psid = rsqrt_ieee(add(mul(dI, dI), p.eps2));
-    const float dIx = add(add(sub(I2wx, i1x[r]), mul(I2wxx, du[r])),
-                          mul(I2wxy, dv[r]));
-    const float dIy = add(add(sub(I2wy, i1y[r]), mul(I2wxy, du[r])),
-                          mul(I2wyy, dv[r]));
-    const float psig = rsqrt_ieee(add(add(mul(dIx, dIx), mul(dIy, dIy)), p.eps2));
-    const float g = mul(gamma, psig);
-    const float dif = sub(I2w, i1[r]);
-    const float dx = sub(I2wx, i1x[r]);
-    const float dy = sub(I2wy, i1y[r]);
-    const float npd = mul(-psid, dif);
-    const float Au = add(sub(mul(npd, I2wx),
-                             mul(g, add(mul(dx, I2wxx), mul(dy, I2wxy)))),
-                         mul(alpha, div_u));
-    const float Av = add(sub(mul(npd, I2wy),
-                             mul(g, add(mul(dx, I2wxy), mul(dy, I2wyy)))),
-                         mul(alpha, div_v));
-    const float Du = add(add(mul(mul(psid, I2wx), I2wx),
-                             mul(g, add(mul(I2wxx, I2wxx), mul(I2wxy, I2wxy)))),
-                         div_d);
-    const float Dv = add(add(mul(mul(psid, I2wy), I2wy),
-                             mul(g, add(mul(I2wyy, I2wyy), mul(I2wxy, I2wxy)))),
-                         div_d);
-    const float D = add(mul(mul(psid, I2wy), I2wx),
-                        mul(mul(g, add(I2wxx, I2wyy)), I2wxy));
+    float Au, Av, Du, Dv, D;
+    if constexpr (EXPO) {
+      const float dI = sub(add(add(I2w, mul(I2wx, du[r])), mul(I2wy, dv[r])),
+                           i1[r]);
+      const float psid = rsqrt_ieee(add(mul(dI, dI), p.eps2));
+      const float dIx = sub(add(add(I2wx, mul(I2wxx, du[r])),
+                                mul(I2wxy, dv[r])), i1x[r]);
+      const float dIy = sub(add(add(I2wy, mul(I2wxy, du[r])),
+                                mul(I2wyy, dv[r])), i1y[r]);
+      const float psig = rsqrt_ieee(add(add(mul(dIx, dIx), mul(dIy, dIy)),
+                                        p.eps2));
+      const float g = mul(gamma, psig);
+      const float dif = sub(I2w, i1[r]);
+      const float dx = sub(I2wx, i1x[r]);
+      const float dy = sub(I2wy, i1y[r]);
+      Au = add(sub(mul(-psid, mul(dif, I2wx)),
+                   mul(g, add(mul(dx, I2wxx), mul(dy, I2wxy)))),
+               mul(alpha, div_u));
+      Av = add(sub(mul(-psid, mul(dif, I2wy)),
+                   mul(g, add(mul(dx, I2wxy), mul(dy, I2wyy)))),
+               mul(alpha, div_v));
+      Du = add(add(mul(psid, mul(I2wx, I2wx)),
+                   mul(g, add(mul(I2wxx, I2wxx), mul(I2wxy, I2wxy)))),
+               div_d);
+      Dv = add(add(mul(psid, mul(I2wy, I2wy)),
+                   mul(g, add(mul(I2wyy, I2wyy), mul(I2wxy, I2wxy)))),
+               div_d);
+      D = add(mul(psid, mul(I2wy, I2wx)),
+              mul(g, mul(add(I2wxx, I2wyy), I2wxy)));
+    } else {
+      const float dI = add(add(sub(I2w, i1[r]), mul(I2wx, du[r])),
+                           mul(I2wy, dv[r]));
+      const float psid = rsqrt_ieee(add(mul(dI, dI), p.eps2));
+      const float dIx = add(add(sub(I2wx, i1x[r]), mul(I2wxx, du[r])),
+                            mul(I2wxy, dv[r]));
+      const float dIy = add(add(sub(I2wy, i1y[r]), mul(I2wxy, du[r])),
+                            mul(I2wyy, dv[r]));
+      const float psig = rsqrt_ieee(add(add(mul(dIx, dIx), mul(dIy, dIy)),
+                                        p.eps2));
+      const float g = mul(gamma, psig);
+      const float dif = sub(I2w, i1[r]);
+      const float dx = sub(I2wx, i1x[r]);
+      const float dy = sub(I2wy, i1y[r]);
+      const float npd = mul(-psid, dif);
+      Au = add(sub(mul(npd, I2wx), mul(g, add(mul(dx, I2wxx), mul(dy, I2wxy)))),
+               mul(alpha, div_u));
+      Av = add(sub(mul(npd, I2wy), mul(g, add(mul(dx, I2wxy), mul(dy, I2wyy)))),
+               mul(alpha, div_v));
+      Du = add(add(mul(mul(psid, I2wx), I2wx),
+                   mul(g, add(mul(I2wxx, I2wxx), mul(I2wxy, I2wxy)))),
+               div_d);
+      Dv = add(add(mul(mul(psid, I2wy), I2wy),
+                   mul(g, add(mul(I2wyy, I2wyy), mul(I2wxy, I2wxy)))),
+               div_d);
+      D = add(mul(mul(psid, I2wy), I2wx), mul(mul(g, add(I2wxx, I2wyy)), I2wxy));
+    }
 
     float* out = p.cst + 9LL * b * plane + (long long)i * nx + j;
     out[0] = Au;
@@ -217,6 +270,22 @@ brox_terms_kernel(const Params p) {
     out[7 * plane] = psi3;
     out[8 * plane] = psi4;
   }
+}
+
+__global__ void __launch_bounds__(THREADS)
+brox_terms_kernel(const Params p) { terms_tile<false>(p); }
+
+__global__ void __launch_bounds__(THREADS)
+expo_terms_kernel(const Params p) { terms_tile<true>(p); }
+
+// Launches `kernel` over the tiles of B samples.
+int launch_terms(void (*kernel)(Params), const Params& p, int B, int ny,
+                 int nx, void* stream) {
+  if (B < 0 || ny < 0 || nx < 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  if (B == 0 || ny == 0 || nx == 0) return 0;
+  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, B);
+  kernel<<<grid, dim3(TX, ROWS), 0, (cudaStream_t)stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -238,11 +307,20 @@ extern "C" int brox_terms(const float* u, const float* v, const float* I1,
                           const float* warped, const float* state, float* cst,
                           int B, int ny, int nx, float alpha, float gamma,
                           float eps2, int first, void* stream) {
-  if (B < 0 || ny < 0 || nx < 0 || B > 65535) return (int)cudaErrorInvalidValue;
-  if (B == 0 || ny == 0 || nx == 0) return 0;
   const Params p = {u, v, I1, I1x, I1y, warped, state, cst, ny, nx,
-                    alpha, gamma, eps2, first};
-  const dim3 grid((nx + TX - 1) / TX, (ny + TY - 1) / TY, B);
-  brox_terms_kernel<<<grid, dim3(TX, ROWS), 0, (cudaStream_t)stream>>>(p);
-  return (int)cudaGetLastError();
+                    alpha, gamma, eps2, first, nullptr};
+  return launch_terms(brox_terms_kernel, p, B, ny, nx, stream);
+}
+
+// K10: one inner iteration's robust-expo system of B gray samples; as
+// `brox_terms`, and expo (B, ny, nx) each sample's exponential
+// diffusivity.  Returns the cudaError_t of the launch.
+extern "C" int expo_terms(const float* u, const float* v, const float* expo,
+                          const float* I1, const float* I1x, const float* I1y,
+                          const float* warped, const float* state, float* cst,
+                          int B, int ny, int nx, float alpha, float gamma,
+                          float eps2, int first, void* stream) {
+  const Params p = {u, v, I1, I1x, I1y, warped, state, cst, ny, nx,
+                    alpha, gamma, eps2, first, expo};
+  return launch_terms(expo_terms_kernel, p, B, ny, nx, stream);
 }

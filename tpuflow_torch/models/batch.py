@@ -1,5 +1,5 @@
-"""Batched multiscale TV-L1, pyramidal Horn-Schunck and Brox spatial:
-the throughput paths on the card.
+"""Batched multiscale TV-L1, pyramidal Horn-Schunck, Brox spatial and
+robust-expo: the throughput paths on the card.
 
 Counterpart of the TV-L1 and HS halves of tpuflow/models/batch.py.  Many
 frame pairs run as one batch; every pyramid level runs each warp as TWO
@@ -18,7 +18,11 @@ each inner solve stopping per sample.  Brox spatial
 (`brox_spatial_batched`, which has no counterpart in the JAX package)
 runs the single-pair solver's own `brox_scale` on the B pairs: per
 outer iteration one K5 or K5p launch for the B stacks of six planes,
-the system's plain ops, and one K7 call for the B SOR solves.  On the
+the system in one K9 launch per inner iteration, and one K7 call for
+the B SOR solves.  Robust-expo on gray pairs (`robust_expo_batched`,
+no counterpart in the JAX package either) runs the same `brox_scale`
+with its per-sample exponential diffusivity and its system in one K10
+launch per inner iteration.  On the
 card the kernels run at every level; on the CPU (device="cpu") their
 plain PyTorch versions run at every level.  The layout is unpadded
 (B, C, ny, nx), contiguous, float32 on the card (float32 or float64 on
@@ -48,6 +52,12 @@ from tpuflow_torch.models.brox_spatial import (
     DEFAULT_OUTER as BROX_OUTER, DEFAULT_TOL as BROX_TOL,
     DEFAULT_ZFACTOR as BROX_ZFACTOR, MAXITER_SOR, brox_pyramid)
 from tpuflow_torch.models.common import run_pyramid_state
+from tpuflow_torch.models.robust_expo import (
+    DEFAULT_ALPHA as RX_ALPHA, DEFAULT_GAMMA as RX_GAMMA,
+    DEFAULT_INNER as RX_INNER, DEFAULT_LAMBDA as RX_LAMBDA,
+    DEFAULT_METHOD as RX_METHOD, DEFAULT_NSCALES as RX_NSCALES,
+    DEFAULT_OUTER as RX_OUTER, DEFAULT_TOL as RX_TOL,
+    DEFAULT_ZFACTOR as RX_ZFACTOR, exponential_diffusivity, preprocess)
 from tpuflow_torch.models.hs_pyramidal import (DEFAULT_ALPHA, DEFAULT_MAXITER,
                                                DEFAULT_NSCALES, DEFAULT_TOL,
                                                DEFAULT_WARPS, DEFAULT_ZFACTOR)
@@ -374,9 +384,67 @@ def brox_spatial_batched(I1, I2, alpha=BROX_ALPHA, gamma=BROX_GAMMA,
         diags.__setitem__ if with_stats else None)
     if not with_stats:
         return u, v
+    return u, v, _sweeps_by_level(diags)
+
+
+def _sweeps_by_level(diags):
+    """{"iterations": {scale: per-solve lists of per-sample SOR sweeps}}
+    of `brox_scale`'s diagnostics of each level, read on the host once a
+    level."""
     iterations = {}
     for scale, diag in diags.items():
         its = diag["iterations"]
         count("host_reads")
         iterations[scale] = its.reshape(its.shape[0], -1).T.tolist()
-    return u, v, {"iterations": iterations}
+    return {"iterations": iterations}
+
+
+@traced
+def robust_expo_batched(I1, I2, method_type=RX_METHOD, alpha=RX_ALPHA,
+                        gamma=RX_GAMMA, lam=RX_LAMBDA, nscales=RX_NSCALES,
+                        zfactor=RX_ZFACTOR, tol=RX_TOL, inner_iter=RX_INNER,
+                        outer_iter=RX_OUTER, stop="error",
+                        maxiter=MAXITER_SOR, clamp_scales=True,
+                        presmooth_mode="reference", warp_mode="auto",
+                        max_motion=8, with_stats=False, device=None):
+    """Batched multiscale robust-expo flow on gray pairs: (B, H, W) pairs
+    -> (B, H, W) flows, each sample `robust_expo` of its pair (reference
+    src/robust_expo_methods.cpp), with its arguments, defaults and
+    devices.
+
+    `brox_spatial_batched`'s loop (`brox_pyramid`): each pair normalised
+    jointly and presmoothed as `presmooth_mode` says, the pyramid's
+    levels zoomed out from it with no further presmooth, and at every
+    level each sample's exponential diffusivity (DF-AUTO: its lambda
+    from its own gradient histogram, on the device) in a span `expo`,
+    then per outer iteration one warp of the B stacks of six planes, per
+    inner iteration one `expo_terms` call (K10) and one K7 call, each
+    sample's solve stopping at sqrt(err / (ny * nx)) <= tol.
+
+    Gray only: a (B, C, H, W) colour stack raises a ValueError (its data
+    terms sum over the channels; `robust_expo` runs one colour pair).
+    `with_stats=True` returns (u, v, stats) as `brox_spatial_batched`
+    does."""
+    if len(I1.shape) != 3:
+        raise ValueError(f"robust_expo_batched takes gray (B, H, W) stacks, "
+                         f"got {tuple(I1.shape)}; a colour pair runs in "
+                         f"robust_expo")
+    # alpha adapted for the one channel and truncated to int
+    # (src/robust_expo_methods.cpp:527)
+    alpha = float(int(alpha))
+
+    def diffusivity(I1x, I1y):
+        return exponential_diffusivity(I1x, I1y, method_type, alpha, lam,
+                                       channel_dim=None)
+
+    diags = {}
+    u, v = brox_pyramid(
+        I1, I2, alpha, gamma, nscales, zfactor, tol, inner_iter, outer_iter,
+        stop, maxiter, clamp_scales, warp_mode, max_motion, device,
+        diags.__setitem__ if with_stats else None,
+        preprocess=lambda images: preprocess(images, presmooth_mode,
+                                             gray_samples=True),
+        presmooth=None, diffusivity=diffusivity)
+    if not with_stats:
+        return u, v
+    return u, v, _sweeps_by_level(diags)

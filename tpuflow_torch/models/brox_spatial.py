@@ -52,12 +52,14 @@ import torch
 
 from tpuflow_torch._device import compute_inputs
 from tpuflow_torch.config import numpy_dtype
-from tpuflow_torch.models.common import default_flow_state, run_pyramid_state
+from tpuflow_torch.models.common import (PRESMOOTHING_SIGMA,
+                                         default_flow_state,
+                                         run_pyramid_state)
 from tpuflow_torch.ops.brox import SOR_OMEGA, brox_sor_error
 # EPSILON and the two psi stencils are also imported from here by the
 # other Brox-family solvers, the tiled lanes and the tests
 from tpuflow_torch.ops.brox_terms import (EPSILON, brox_terms,  # noqa: F401
-                                          psi_divergence,
+                                          expo_terms, psi_divergence,
                                           psi_weighted_divergence)
 from tpuflow_torch.ops.gradients import _shift_clamp, centered_gradient, dxx, dxy, dyy
 from tpuflow_torch.ops.interp import resolve_warp_mode, warp_by_mode
@@ -161,7 +163,7 @@ def brox_scale(I1, I2, u, v, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
                tol=DEFAULT_TOL, inner_iter=DEFAULT_INNER,
                outer_iter=DEFAULT_OUTER, stop="error",
                maxiter=MAXITER_SOR, with_diag=False, warp_mode="exact",
-               dmax=8):
+               dmax=8, diffusivity=None):
     """Single-scale Brox spatial flow (reference brox_optic_flow,
     src/brox_optic_flow_spatial.cpp:179-444) of one (ny, nx) pair, or
     of B pairs (B, ny, nx) at once: one warp of the B stacks of six
@@ -170,6 +172,12 @@ def brox_scale(I1, I2, u, v, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
     `brox_terms` call (K9 on the card; a span `terms`) and one K7 call
     for all of them, each sample's solve stopping on its own at
     sqrt(err / (ny * nx)) <= tol.  A pair runs as B = 1.
+
+    `diffusivity(I1x, I1y)`, where given, makes the system robust-expo's
+    on gray samples (src/robust_expo_methods.cpp:161-455): the weight
+    expo it gives (B, ny, nx) from I1's centred gradient, once in a span
+    `expo`, modulates the smoothness, and each inner iteration's system
+    is `expo_terms`' (K10 on the card) instead of `brox_terms`'.
 
     `with_diag=True` also returns {"iterations": (outer, inner) int32,
     "warp_overflow_tiles": 0}, (B, outer, inner) for B pairs: the SOR
@@ -182,6 +190,14 @@ def brox_scale(I1, I2, u, v, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
     size = ny * nx
 
     I1x, I1y = centered_gradient(I1)
+    if diffusivity is None:
+        terms = brox_terms
+    else:
+        with span("expo"):
+            expo = diffusivity(I1x, I1y)
+
+        def terms(u, v, *args, **kw):
+            return expo_terms(u, v, expo, *args, **kw)
     I2x, I2y = centered_gradient(I2)
     planes = torch.stack([I2, I2x, I2y, dxx(I2), dxy(I2), dyy(I2)], dim=1)
     const = torch.empty((B, 9, ny, nx), dtype=I1.dtype, device=I1.device)
@@ -193,8 +209,8 @@ def brox_scale(I1, I2, u, v, alpha=DEFAULT_ALPHA, gamma=DEFAULT_GAMMA,
             state = torch.zeros((B, 2, ny, nx), dtype=u.dtype, device=u.device)
         for k in range(inner_iter):
             with span("terms"):
-                brox_terms(u, v, I1, I1x, I1y, warped, state, const, alpha,
-                           gamma, first=k == 0)
+                terms(u, v, I1, I1x, I1y, warped, state, const, alpha,
+                      gamma, first=k == 0)
             # K7 updates (du, dv) in place
             _, _, nsor, _ = _solve(state, const, alpha, tol, size, stop,
                                    maxiter)
@@ -229,14 +245,17 @@ def print_iterations(scale, diag, outer_iter, inner_iter, with_error=False):
 
 def brox_pyramid(I1, I2, alpha, gamma, nscales, zfactor, tol, inner_iter,
                  outer_iter, stop, maxiter, clamp_scales, warp_mode,
-                 max_motion, device, on_diag=None):
+                 max_motion, device, on_diag=None, preprocess="normalize",
+                 presmooth=PRESMOOTHING_SIGMA, diffusivity=None):
     """The coarse-to-fine loop of `brox_spatial` (one (H, W) pair) and
-    `brox_spatial_batched` (B pairs, (B, H, W)): inputs moved as
-    `compute_inputs` moves them, each pair normalised jointly, the
-    pyramid (K8 on the card), `brox_scale` at every level with
-    dmax = max(3, ceil(max_motion * zfactor**s)) and `zoom_in` between
-    levels.  `on_diag(scale, diag)`, where given, receives each level's
-    `brox_scale` diagnostics as the level is solved.  Returns (u, v)."""
+    the batched Brox-family engines (B pairs, (B, H, W)): inputs moved
+    as `compute_inputs` moves them, each pair normalised jointly and
+    presmoothed (`preprocess`, `presmooth`: `run_pyramid_state`'s), the
+    pyramid (K8 on the card), `brox_scale` with `diffusivity` at every
+    level with dmax = max(3, ceil(max_motion * zfactor**s)) and
+    `zoom_in` between levels.  `on_diag(scale, diag)`, where given,
+    receives each level's `brox_scale` diagnostics as the level is
+    solved.  Returns (u, v)."""
     I1, I2 = compute_inputs(device, I1, I2)
     warp_mode = resolve_warp_mode(warp_mode, I1.device)
     ny, nx = I1.shape[-2:]
@@ -254,12 +273,13 @@ def brox_pyramid(I1, I2, alpha, gamma, nscales, zfactor, tol, inner_iter,
         out = brox_scale(lvl1, lvl2, state["u1"], state["u2"], alpha, gamma,
                          tol, inner_iter, outer_iter, stop, maxiter,
                          with_diag=on_diag is not None, warp_mode=warp_mode,
-                         dmax=dmax)
+                         dmax=dmax, diffusivity=diffusivity)
         if on_diag is not None:
             on_diag(scale, out[2])
         return {"u1": out[0], "u2": out[1]}
 
-    state = run_pyramid_state((I1, I2), nscales, zfactor, solve, state_init)
+    state = run_pyramid_state((I1, I2), nscales, zfactor, solve, state_init,
+                              presmooth, preprocess)
     return state["u1"], state["u2"]
 
 
