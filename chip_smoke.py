@@ -20,10 +20,13 @@ then runs these phases, each printing one JSON line:
      436x1024 and 100 at 109x257 (no tile divides it).  K7 (brox_sor)
      at the five Brox levels of 1024x436, B=1 (its route "resident"),
      and at B=2 x 436x1024 (its route "stream"), each check naming its
-     route; then route "stream" against route "resident" at B=2 x
-     218x512, which both take (8 fixed sweeps, bit-equal expected), and
-     the kernels one 16-sweep stream solve launches by name (16
-     `brox_sor_colors`, 16 `stop_finalize`, one `brox_sor_color_settle`).
+     route; then route "stream" at one sweep a launch and at DEEP_K
+     against route "resident" at B=2 x 218x512, which both take (8 and
+     17 fixed sweeps, bit-equal expected), and the kernels one 16-sweep
+     stream solve launches by name at each (`stream_kernels`); route
+     "stream" at DEEP_K against one sweep a launch at levels 0-3, B=4
+     and B=128 (fixed sweeps bit-equal, n within one, and du, dv
+     bit-equal where n is the same, with stops inside a launch).
      K7 solves the system that `brox_scale` assembles (K9) from
      the synthetic flow.  K9 (brox_terms) at the five Brox levels, B=128
      and B=1, on the first inner iteration (a nonzero state it must not
@@ -97,9 +100,10 @@ then runs these phases, each printing one JSON line:
      needed against launched; K7 as one resident solve of 16 and of 300
      fixed sweeps, one launch each, beside route "stream"'s time per
      sweep; K7's launches per Brox pair per route and by kernel name;
-     route "stream" at B=128 at level 0 by graph: one sweep in a chunk
-     of 16 against its 13 planes' bound, and a 16-sweep chunk with every
-     sample stopped).
+     route "stream" at B=128 at levels 0-3 by graph: one sweep in a
+     chunk of 16 at one sweep a launch and at DEEP_K against the bound
+     of its 13 planes moved once a launch, the settle's most redo, and
+     a 16-sweep chunk with every sample stopped).
      K5, K5p and K7's resident solves are timed as CUDA graphs between
      CUDA events (`graph_ms`), the profiler's median beside them; K5 and
      K5p at every shape where the main paths launch them, with both plane
@@ -889,24 +893,37 @@ def stopped_equal_within_tol(got, n, ref, n_ref):
             "error_within_tol": ok}
 
 
+def stream_kernels(depth, sweeps):
+    """{part of a kernel name: launches} of one `sweeps`-sweep stream
+    solve at `depth`: at 1, one `brox_sor_colors` and one `stop_finalize`
+    a sweep; at DEEP_K, one `brox_sor_color_sweeps` and one
+    `stop_finalize_sweeps` a launch of DEEP_K (which `stop_finalize`
+    names too) and the redo's `brox_sor_color_sweeps`; one
+    `brox_sor_color_settle` a solve."""
+    launches = -(-sweeps // depth)
+    if depth == 1:
+        return {"brox_sor_colors": launches, "stop_finalize": launches,
+                "brox_sor_color_sweeps": 0, "brox_sor_color_settle": 1}
+    return {"brox_sor_colors": 0, "brox_sor_color_sweeps": launches + 1,
+            "stop_finalize": launches, "brox_sor_color_settle": 1}
+
+
 def check_brox_stream(dev):
     """K7's route "stream" on a system route "resident" takes too (B=2 at
-    218x512): du and dv after 8 and after 17 fixed sweeps of
-    `_solve_stream` against `brox_sor_error`'s resident solve (bit-equal:
-    the same arithmetic; 17 ends on the scratch buffer, so the settle
-    copies it back); the kernels the profiler records for one 16-sweep
-    stream solve by name: one `brox_sor_colors` and one `stop_finalize` a
-    sweep, one `brox_sor_color_settle` a solve (a window in which the
-    profiler missed a kernel is profiled again, up to 3 times, as
-    `device_ms` does); and stop="error" at level 0 of B_TIME samples
-    (`brox_system`'s scaled right-hand sides, which stop at different
-    sweeps, odd and even, so the blocks walk a shrinking list of active
-    samples) against the plain version: each n within 1, du and dv within
-    tolerance where n is equal."""
+    218x512), at both depths `brox_sor_depth` picks (1 and DEEP_K): du
+    and dv after 8 and after 17 fixed sweeps of `_solve_stream` against
+    `brox_sor_error`'s resident solve (bit-equal: the same arithmetic; 17
+    ends inside a launch of DEEP_K, so the settle redoes it, and on the
+    scratch buffer at depth 1, so the settle copies it back); the kernels
+    the profiler records for one 16-sweep stream solve by name
+    (`stream_kernels`; a window in which the profiler missed a kernel is
+    profiled again, up to 3 times, as `device_ms` does); then
+    `check_stream_depth` and stop="error" at level 0 of B_TIME samples
+    (`batch_stop_error`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from tpuflow_torch.ops.brox import (_solve_stream, brox_sor_error,
+    from tpuflow_torch.ops.brox import (DEEP_K, _solve_stream, brox_sor_error,
                                         device_route)
 
     ny, nx = 218, 512
@@ -914,108 +931,225 @@ def check_brox_stream(dev):
     out = {"shape": list(state.shape), "route": device_route(2, ny, nx)}
     if out["route"] != "resident":
         raise AssertionError(f"brox_sor stream check: {out}")
-    for sweeps in (8, 17):
-        got, _, n = _solve_stream(state.clone(), const, -1.0, sweeps, alpha)
-        ref, _, n_ref = brox_sor_error(state.clone(), const, -1.0, sweeps,
-                                       alpha)
-        torch.cuda.synchronize()
-        out.update({f"fixed{sweeps}_n": n.tolist(),
-                    f"fixed{sweeps}_n_resident": n_ref.tolist(),
-                    f"fixed{sweeps}_max_abs_err":
-                        float((got - ref).abs().max()),
-                    f"fixed{sweeps}_bit_equal": bool(torch.equal(got, ref))})
-        if not (n.tolist() == n_ref.tolist() == [sweeps] * 2
-                and out[f"fixed{sweeps}_bit_equal"]):
-            raise AssertionError(f"brox_sor stream against resident: {out}")
-    want = {"brox_sor_colors": 16, "stop_finalize": 16,
-            "brox_sor_color_settle": 1}
-    for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _solve_stream(state.clone(), const, -1.0, 16, alpha)
+    for depth in (1, DEEP_K):
+        for sweeps in (8, 17):
+            got, _, n = _solve_stream(state.clone(), const, -1.0, sweeps,
+                                      alpha, depth)
+            ref, _, n_ref = brox_sor_error(state.clone(), const, -1.0,
+                                           sweeps, alpha)
             torch.cuda.synchronize()
-        names = [e.name for e in prof.events()
-                 if e.device_type == DeviceType.CUDA]
-        recorded = {part: sum(part in name for name in names)
-                    for part in want}
-        if recorded == want:
-            break
-    out.update(kernels_16_sweeps=recorded, profiled_windows=attempt + 1)
-    if recorded != want:
-        raise AssertionError(f"brox_sor stream launches by name: {out}")
+            key = f"depth{depth}_fixed{sweeps}"
+            out.update({f"{key}_n": n.tolist(),
+                        f"{key}_n_resident": n_ref.tolist(),
+                        f"{key}_max_abs_err": float((got - ref).abs().max()),
+                        f"{key}_bit_equal": bool(torch.equal(got, ref))})
+            if not (n.tolist() == n_ref.tolist() == [sweeps] * 2
+                    and out[f"{key}_bit_equal"]):
+                raise AssertionError(
+                    f"brox_sor stream against resident: {out}")
+        want = stream_kernels(depth, 16)
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _solve_stream(state.clone(), const, -1.0, 16, alpha, depth)
+                torch.cuda.synchronize()
+            names = [e.name for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+            recorded = {part: sum(part in name for name in names)
+                        for part in want}
+            if recorded == want:
+                break
+        out.update({f"depth{depth}_kernels_16_sweeps": recorded,
+                    f"depth{depth}_profiled_windows": attempt + 1})
+        if recorded != want:
+            raise AssertionError(f"brox_sor stream launches by name: {out}")
     del state, const, got, ref
+    out["depth"] = check_stream_depth(dev)
     out["batch"] = batch_stop_error(dev)
     return out
 
 
+def check_stream_depth(dev):
+    """Route "stream" at DEEP_K sweeps a launch against its one-sweep
+    schedule, at levels 0-3 of 1024x436 and B = 4 and B_TIME (each
+    sample's right-hand side scaled as `brox_system` does), whatever
+    depth `brox_sor_depth` picks there (reported): 7 and 17 fixed sweeps
+    (max_iter reached inside a launch of DEEP_K), bit-equal; stop="error"
+    at the solver's threshold, and at a threshold that stops samples
+    inside a launch (the one-sweep schedule's err after 6 sweeps, the
+    median over the samples): each n within one of the plain version and
+    of the one-sweep schedule, du and dv bit-equal to the one-sweep
+    schedule wherever n is the same, and at least one sample stopped
+    inside a launch."""
+    from tpuflow_torch.ops.brox import (DEEP_K, _solve_stream,
+                                        brox_sor_error_plain, device_depth,
+                                        device_route)
+
+    out = []
+    for B in (B_CHECK, B_TIME):
+        for scale, (nx, ny) in enumerate(brox_levels()[:4]):
+            state, const, thresh, alpha = brox_system(dev, ny, nx,
+                                                      brox_dmax(scale), B)
+            row = {"B": B, "level": scale, "route": device_route(B, ny, nx),
+                   "depth": device_depth()}
+
+            def both(th, max_iter):
+                one = _solve_stream(state.clone(), const, th, max_iter, alpha,
+                                    1)
+                deep = _solve_stream(state.clone(), const, th, max_iter,
+                                     alpha, DEEP_K)
+                torch.cuda.synchronize()
+                return one, deep
+
+            for sweeps in (7, 17):
+                one, deep = both(-1.0, sweeps)
+                row[f"fixed{sweeps}_bit_equal"] = bool(
+                    torch.equal(one[0], deep[0])
+                    and one[2].tolist() == deep[2].tolist() == [sweeps] * B)
+            six = _solve_stream(state.clone(), const, -1.0, 6, alpha, 1)[1]
+            early = float(six.median())
+            for name, th in (("stop", thresh), ("early_stop", early)):
+                one, deep = both(th, 300)
+                plain_n = brox_sor_error_plain(state.clone(), const, th, 300,
+                                               alpha)[2].to(dev)
+                same = one[2] == deep[2]
+                row[name] = {
+                    "thresh": th,
+                    "n_range": [int(deep[2].min()), int(deep[2].max())],
+                    "inside_launch": int((deep[2] % DEEP_K != 0).sum()),
+                    "n_off_one_sweep": int((~same).sum()),
+                    "max_off_plain": int((deep[2] - plain_n).abs().max()),
+                    "max_off_one_sweep": int((deep[2] - one[2]).abs().max()),
+                    "bit_equal_where_same": all(
+                        bool(torch.equal(one[0][k], deep[0][k]))
+                        for k in range(B) if same[k])}
+            out.append(row)
+            r = row["early_stop"]
+            if not (row["fixed7_bit_equal"] and row["fixed17_bit_equal"]
+                    and all(row[k]["max_off_plain"] <= 1
+                            and row[k]["max_off_one_sweep"] <= 1
+                            and row[k]["bit_equal_where_same"]
+                            for k in ("stop", "early_stop"))
+                    and r["inside_launch"] > 0):
+                raise AssertionError(f"brox_sor at depth {DEEP_K} against "
+                                     f"one sweep a launch: {row}")
+            del state, const
+    return out
+
+
 def batch_stop_error(dev):
-    """`check_brox_stream`'s stop="error" case at level 0 of B_TIME samples."""
+    """`check_brox_stream`'s stop="error" case at level 0 of B_TIME
+    samples, at the depth `brox_sor_depth` picks (and the one-sweep
+    schedule beside it: du and dv bit-equal where n is the same)."""
     from tpuflow_torch.data import NX, NY
-    from tpuflow_torch.ops.brox import (brox_sor_error, brox_sor_error_plain,
+    from tpuflow_torch.ops.brox import (_solve_stream, brox_sor_error,
+                                        brox_sor_error_plain, device_depth,
                                         device_route)
 
     state, const, thresh, alpha = brox_system(dev, NY, NX, BROX_DMAX0, B_TIME)
-    out = {"shape": list(state.shape), "route": device_route(B_TIME, NY, NX)}
+    out = {"shape": list(state.shape), "route": device_route(B_TIME, NY, NX),
+           "depth": device_depth()}
     got, _, n = brox_sor_error(state.clone(), const, thresh, 300, alpha)
     ref, _, n_ref = brox_sor_error_plain(state.clone(), const, thresh, 300,
                                          alpha)
+    one, _, n_one = _solve_stream(state.clone(), const, thresh, 300, alpha, 1)
     torch.cuda.synchronize()
+    same = n == n_one
     out.update(n_distinct=sorted(set(n.tolist())),
                n_plain_distinct=sorted(set(n_ref.tolist())),
                n_off_by_one=int((n != n_ref).sum()),
-               n_odd=int((n % 2 == 1).sum()))
+               n_odd=int((n % 2 == 1).sum()),
+               n_off_one_sweep=int((~same).sum()),
+               bit_equal_one_sweep_where_same=all(
+                   bool(torch.equal(got[k], one[k]))
+                   for k in range(B_TIME) if same[k]))
     out.update(stopped_equal_within_tol(got, n, ref, n_ref))
     if not (out["route"] == "stream" and len(out["n_distinct"]) > 1
             and out["n_odd"] > 0 and bool(((n - n_ref).abs() <= 1).all())
-            and out["error_within_tol"]):
+            and out["error_within_tol"]
+            and out["bit_equal_one_sweep_where_same"]):
         raise AssertionError(f"brox_sor stream at B={B_TIME} (stop error) "
                              f"disagrees with the plain version: {out}")
     return out
 
 
-def level0_brox_stream(dev):
-    """K7's route "stream" at its main path's shape, level 0 of B_TIME
+def levels_brox_stream(dev):
+    """K7's route "stream" at its main path's shapes, levels 0-3 of B_TIME
     1024x436 pairs (one system repeated), timed by `graph_ms` (the planes
-    are 50 times the L2, so it is not flushed): a 16-sweep chunk of the
-    library's run entry with every sample active (thresh < 0), per sweep
-    against the bound of its 13 planes, and a 16-sweep chunk with every
-    sample stopped (what the host loop launches after the last sample
-    stopped).  Fails below the bound or above K7_STREAM_X_BOUND times it."""
+    are 50 times the L2 at level 0, so it is not flushed): a 16-sweep
+    chunk of the library's run entry with every sample active (thresh <
+    0) at one sweep a launch and at DEEP_K, per sweep against the bound
+    of its 13 planes moved once a launch; the settle with every sample
+    to redo DEEP_K - 1 sweeps (its most); and, at level 0, a 16-sweep
+    chunk with every sample stopped (what the host loop launches after
+    the last sample stopped).  Fails, at level 0, below a bound or above
+    K7_STREAM_X_BOUND times the one-sweep bound, and at any level where
+    `brox_sor_depth` picks DEEP_K, where a sweep at DEEP_K is not faster
+    than one at one sweep a launch."""
     from tpuflow_torch import _build
-    from tpuflow_torch.data import NX, NY
-    from tpuflow_torch.ops.brox import STREAM_TILE, _library, tile_count
+    from tpuflow_torch.ops.brox import (DEEP_K, DEEP_TILE, STREAM_TILE,
+                                        _library, device_depth, tile_count)
 
-    state, const, _, alpha = brox_system(dev, NY, NX, BROX_DMAX0)
     B = B_TIME
-    state = state.expand(B, -1, -1, -1).contiguous()
-    const = const.expand(B, -1, -1, -1).contiguous()
-    scratch = torch.empty_like(state)
-    partial = torch.empty(B * tile_count(NY, NX, STREAM_TILE), device=dev)
-    err = torch.full((B,), float("inf"), device=dev)
-    n = torch.zeros((B,), dtype=torch.int32, device=dev)
     lib = _library()
+    out = {"unit": f"ms a sweep, B={B}, in a chunk of 16"}
+    for scale, (nx, ny) in enumerate(brox_levels()[:4]):
+        state, const, _, alpha = brox_system(dev, ny, nx, brox_dmax(scale))
+        state = state.expand(B, -1, -1, -1).contiguous()
+        const = const.expand(B, -1, -1, -1).contiguous()
+        scratch = torch.empty_like(state)
+        k = {"shape": [ny, nx], "depth": device_depth()}
+        for depth in (1, DEEP_K):
+            tile = STREAM_TILE if depth == 1 else DEEP_TILE
+            partial = torch.empty(B * tile_count(ny, nx, tile) * depth,
+                                  device=dev)
+            err = torch.full((B,), float("inf"), device=dev)
+            n = torch.zeros((B,), dtype=torch.int32, device=dev)
+            redo = torch.zeros((B,), dtype=torch.int32, device=dev)
 
-    def chunk(active):
-        _build.launch(lib, "brox_sor_run", state, scratch, const, partial,
-                      partial.numel(), err, n, active, B, NY, NX, -1.0,
-                      2 ** 30, float(alpha), 16, device=state.device)
+            def chunk(active):
+                _build.launch(lib, "brox_sor_run", state, scratch, const,
+                              partial, partial.numel(), err, n, active, redo,
+                              B, ny, nx, -1.0, 2 ** 30, float(alpha), 16,
+                              depth, device=state.device)
 
-    on = torch.ones((B,), dtype=torch.int32, device=dev)
-    off = torch.zeros((B,), dtype=torch.int32, device=dev)
-    k = {"unit": f"one sweep, B={B} at {NX}x{NY} (level 0), in a chunk of 16"}
-    k["ms"] = graph_ms(lambda: chunk(on), 2, False) / 16
-    k["bound_ms"], k["bound_by"] = bound_ms(B * NY * NX, K7_PLANES,
-                                            K7_FLOPS_PX)
-    k["x_bound"] = k["ms"] / k["bound_ms"]
-    k["gb_per_s_at_52_b_px"] = B * NY * NX * 4 * K7_PLANES / k["ms"] / 1e6
-    k["stopped_chunk_ms"] = graph_ms(lambda: chunk(off), 10, False)
-    torch.cuda.synchronize()
-    if not bool(torch.isfinite(state).all()):
-        raise AssertionError(f"brox_sor stream at B={B}: state not finite")
-    if not k["bound_ms"] <= k["ms"] <= K7_STREAM_X_BOUND * k["bound_ms"]:
-        raise AssertionError(f"brox_sor stream sweep outside [1, "
-                             f"{K7_STREAM_X_BOUND}] times its bound: {k}")
-    return k
+            on = torch.ones((B,), dtype=torch.int32, device=dev)
+            ms = graph_ms(lambda: chunk(on), 2, False) / 16
+            bound = bound_ms(B * ny * nx, K7_PLANES / depth, K7_FLOPS_PX)
+            k[f"depth{depth}"] = {"ms": ms, "bound_ms": bound[0],
+                                  "bound_by": bound[1],
+                                  "x_bound": ms / bound[0]}
+            if depth > 1:
+                n_redo = torch.full((B,), depth - 1, dtype=torch.int32,
+                                    device=dev)
+
+                def settle():
+                    _build.launch(lib, "brox_sor_finish", state, scratch,
+                                  const, n_redo, n_redo, B, ny, nx,
+                                  float(alpha), depth, device=state.device)
+
+                k[f"depth{depth}"]["settle_redo_all_ms"] = graph_ms(settle, 5,
+                                                                   False)
+            if scale == 0:
+                if not (bound[0] <= ms and ms <= K7_STREAM_X_BOUND * bound_ms(
+                        B * ny * nx, K7_PLANES, K7_FLOPS_PX)[0]):
+                    raise AssertionError(f"brox_sor stream sweep outside its "
+                                         f"bounds: {k}")
+                if depth == 1:
+                    off = torch.zeros((B,), dtype=torch.int32, device=dev)
+                    k["stopped_chunk_ms"] = graph_ms(lambda: chunk(off), 10,
+                                                     False)
+        k["speedup"] = k["depth1"]["ms"] / k[f"depth{DEEP_K}"]["ms"]
+        if k["depth"] == DEEP_K and not k["speedup"] > 1:
+            raise AssertionError(f"brox_sor stream at depth {DEEP_K} no "
+                                 f"faster than one sweep a launch where "
+                                 f"brox_sor_depth picks it: {k}")
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(state).all()):
+            raise AssertionError(f"brox_sor stream at B={B}: state not finite")
+        out[f"level{scale}"] = k
+        del state, const, scratch
+    return out
 
 
 def _warp_hs_plain(planes, uv, aux, dmax, alpha2):
@@ -1960,7 +2094,7 @@ def level0_brox(dev):
         return brox_sor_error(state, const, -1.0, sweeps, alpha)
 
     def k7_stream(sweeps):
-        return _solve_stream(state, const, -1.0, sweeps, alpha)
+        return _solve_stream(state, const, -1.0, sweeps, alpha, 1)
 
     def k7_plain():
         return brox_sor_error_plain(state, const, -1.0, 16, alpha)
@@ -3385,7 +3519,7 @@ def main():
     del I0, I1
     lvl0_pair = level0_brox(dev)
     emit(phase="level0_kernels", batch=1, shape=[NY, NX], **lvl0_pair)
-    emit(phase="brox_sor_stream_timing", **level0_brox_stream(dev))
+    emit(phase="brox_sor_stream_timing", **levels_brox_stream(dev))
     lvl0.update(lvl0_pair)
     lvl0["brox_terms"] = brox_terms_timing(dev)
     emit(phase="brox_terms_timing", **lvl0["brox_terms"])

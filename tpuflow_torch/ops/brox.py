@@ -31,16 +31,24 @@ the source): "resident", the whole solve in one cooperative launch with
 the level in the SMs' shared memory, one block per tile of `TILE`
 pixels (halo `HALO`) per sample and the stop tested on the device after
 every sweep; and "stream", for systems whose tiles outnumber the blocks
-the device holds at once: one launch per sweep that updates both colors
-of every active sample's tiles of `STREAM_TILE` pixels (halo
-`STREAM_HALO`, red on the interior grown by one, black on the interior)
-into the other of two state buffers, then the stop's fixed-order sum,
-with a host read of `active` every CHECK_EVERY sweeps (ops/sweeps.py)
-and a last launch that settles the samples that end in the scratch
-buffer.  No switch picks a route, and a refused launch raises.  The
-kernel sums `err` in another order than PyTorch, so a sample's `n` may
-differ from the plain version's by one where `err` lands next to
-`thresh`.
+the device holds at once: one launch per K sweeps that updates both
+colors of every active sample's tiles into the other of two state
+buffers, then the stop's fixed-order sum, with a host read of `active`
+every CHECK_EVERY sweeps (ops/sweeps.py) and a last launch that settles
+the samples that end in the scratch buffer.  `brox_sor_depth` picks K
+from the device's limits: DEEP_K where a block of the K-sweep kernel
+fits (tiles of `DEEP_TILE`, du and dv over a halo of 2K and the constants
+over 2K - 1 in shared memory, sweep s of K updating red on the interior
+grown by 2(K - s) + 1 and black on it grown by 2(K - s)), else 1 (tiles
+of `STREAM_TILE` pixels, halo `STREAM_HALO`, red on the interior grown
+by one, black on the interior).  At K > 1 each
+sweep's summed squared update is kept, the stop walks them in order,
+and a sample that stops inside a launch is run again for its sweeps by
+the settle from that launch's input, so n sweeps give the same state,
+bit for bit, at either K.  No switch picks a route or K, and a refused
+launch raises.  The kernel sums `err` in another order than PyTorch (and
+per tile, so at each K in its own), so a sample's `n` may differ from
+the plain version's by one where `err` lands next to `thresh`.
 """
 
 import ctypes
@@ -74,12 +82,21 @@ RESIDENT_SMEM = RESIDENT_SCRATCH + 4 * (
 STREAM_TILE = (30, 60)
 STREAM_HALO = 2
 STREAM_THREADS = 256
+# route "stream"'s K-sweep launch: its sweeps K, its tile interior (rows,
+# columns), its threads and its dynamic shared memory (du and dv over the
+# interior and a halo of 2K, the nine constants over a halo of 2K - 1)
+DEEP_K = 4
+DEEP_TILE = (32, 96)
+DEEP_THREADS = 1024
+DEEP_SMEM = 4 * (
+    2 * (DEEP_TILE[0] + 4 * DEEP_K) * (DEEP_TILE[1] + 4 * DEEP_K)
+    + 9 * (DEEP_TILE[0] + 4 * DEEP_K - 2) * (DEEP_TILE[1] + 4 * DEEP_K - 2))
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "brox_sor_run": [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _I, _I,
-                     _I, _F, _I, _F, _I, _P],
-    "brox_sor_finish": [_P, _P, _P, _I, _I, _I, _P],
+    "brox_sor_run": [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P, _P, _I,
+                     _I, _I, _F, _I, _F, _I, _I, _P],
+    "brox_sor_finish": [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P],
     "brox_sor_solve": [_P, _P, _P, ctypes.c_longlong, _P, _P, _I, _I, _I, _F,
                        _I, _F, _P],
     "brox_sor_limits": [_P],
@@ -103,6 +120,17 @@ def brox_sor_route(B, ny, nx, smem_optin, resident_blocks):
     fits = (RESIDENT_SMEM <= smem_optin and B <= RESIDENT_THREADS
             and B * tile_count(ny, nx) <= resident_blocks)
     return "resident" if fits else "stream"
+
+
+def brox_sor_depth(deep_blocks):
+    """The sweeps route "stream" runs a launch on a device that holds
+    `deep_blocks` blocks of its K-sweep kernel at once (0 where one does
+    not fit): DEEP_K where one fits, else 1 (one sweep a launch, on tiles
+    of `STREAM_TILE`).  On an H100 a sweep at DEEP_K took 0.61-0.76 of
+    one at 1 at every stream level of 128 Sintel-sized pairs, down to
+    3.9 tiles a block, so the level's size does not enter.  Both divide
+    CHECK_EVERY, so the host reads the stop as often at either."""
+    return DEEP_K if deep_blocks > 0 else 1
 
 
 def _sweep(s, au, av, rdu, rdv, dd, psis, alpha, colors):
@@ -167,26 +195,37 @@ def _library():
     return _build.load("brox_sor", _SIGNATURES, (
         "brox_sor_geometry", (*TILE, HALO, RESIDENT_THREADS, RESIDENT_SCRATCH,
                               RESIDENT_SMEM, *STREAM_TILE, STREAM_HALO,
-                              STREAM_THREADS)))
+                              STREAM_THREADS, DEEP_K, *DEEP_TILE, DEEP_THREADS,
+                              DEEP_SMEM)))
 
 
 @functools.lru_cache(maxsize=None)
 def _device_limits(index):
-    """(opt-in shared memory per block, resident blocks of route
-    "resident") of CUDA device `index`, as the device reports them."""
-    out = (ctypes.c_int * 2)()
+    """(opt-in shared memory per block, blocks of route "resident" the
+    device holds at once, blocks of route "stream"'s K-sweep kernel it
+    holds at once) of CUDA device `index`, as the device reports them."""
+    out = (ctypes.c_int * 3)()
     _build.launch(_library(), "brox_sor_limits", out,
                   device=torch.device("cuda", index), stream=False)
-    return out[0], out[1]
+    return out[0], out[1], out[2]
+
+
+def _limits_of(device):
+    index = None if device is None else torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    return _device_limits(index)
 
 
 def device_route(B, ny, nx, device=None):
     """`brox_sor_route` on CUDA device `device` (default: the current
     one; builds the kernel library on first use)."""
-    index = None if device is None else torch.device(device).index
-    if index is None:
-        index = torch.cuda.current_device()
-    return brox_sor_route(B, ny, nx, *_device_limits(index))
+    return brox_sor_route(B, ny, nx, *_limits_of(device)[:2])
+
+
+def device_depth(device=None):
+    """`brox_sor_depth` on CUDA device `device`, as `device_route`."""
+    return brox_sor_depth(_limits_of(device)[2])
 
 
 def _solve_resident(state, const, thresh, max_iter, alpha):
@@ -205,33 +244,38 @@ def _solve_resident(state, const, thresh, max_iter, alpha):
     return state, err, n
 
 
-def _solve_stream(state, const, thresh, max_iter, alpha):
-    """Route "stream" on CUDA tensors: one launch per sweep for both
-    colors, then the stop's sum; the host reads `active` every
-    CHECK_EVERY sweeps, and a last launch copies the samples whose state
-    ended in the scratch buffer (odd n) back."""
+def _solve_stream(state, const, thresh, max_iter, alpha, depth):
+    """Route "stream" on CUDA tensors: `depth` sweeps a launch (1 or
+    DEEP_K), each launch followed by the stop's sum; the host reads
+    `active` every CHECK_EVERY sweeps, and the settle runs again the
+    samples that stopped inside a launch and copies those whose state
+    ended in the scratch buffer back."""
     state, err, n = unsolved(state)
     B, _, ny, nx = state.shape
     dev = state.device
     lib = _library()
     scratch = torch.empty_like(state)
-    partial = torch.empty(B * tile_count(ny, nx, STREAM_TILE),
+    tile = STREAM_TILE if depth == 1 else DEEP_TILE
+    partial = torch.empty(B * tile_count(ny, nx, tile) * depth,
                           dtype=torch.float32, device=dev)
     active = torch.ones((B,), dtype=torch.int32, device=dev)
+    redo = torch.zeros((B,), dtype=torch.int32, device=dev)
     count("calls.brox_sor_error.stream")
 
     def sweeps(iters):
         _build.launch(lib, "brox_sor_run", state, scratch, const, partial,
-                      partial.numel(), err, n, active, B, ny, nx,
+                      partial.numel(), err, n, active, redo, B, ny, nx,
                       float(thresh), int(max_iter), float(alpha), iters,
-                      device=dev)
-        count("iters.k7", iters)
+                      depth, device=dev)
+        launches = -(-iters // depth)
+        count("iters.k7", launches * depth)
+        count("launches.k7", launches)
 
     launch_until_stopped(sweeps, active, max_iter)
     # the settle is K7 work too: a second span `solve`, after the loop's
     with span("solve"):
-        _build.launch(lib, "brox_sor_finish", state, scratch, n, B, ny, nx,
-                      device=dev)
+        _build.launch(lib, "brox_sor_finish", state, scratch, const, n, redo,
+                      B, ny, nx, float(alpha), depth, device=dev)
     return state, err, n
 
 
@@ -254,4 +298,5 @@ def brox_sor_error(state, const, thresh, max_iter, alpha):
     B, _, ny, nx = state.shape
     if device_route(B, ny, nx, state.device) == "resident":
         return _solve_resident(state, const, thresh, max_iter, alpha)
-    return _solve_stream(state, const, thresh, max_iter, alpha)
+    return _solve_stream(state, const, thresh, max_iter, alpha,
+                         device_depth(state.device))

@@ -4,16 +4,16 @@ stop is read on the host: K2 (csrc/tvl1_iterate.cu), K4's route "tiles"
 and K7's route "resident" test the stop on the device and need none of
 this.
 
-K2 and K7 each export two C entry points: `<run>(state, const, partial,
+K2 exports two C entry points: `<run>(state, const, partial,
 partial_len, err, n, active, B, ny, nx, thresh, max_iter, <scalars>,
-count, stream)`, which launches `count` iterations or sweeps, each
-ending in common.cuh's `stop_finalize`, and `<partial_len>(B, ny, nx)`,
-the length of their scratch; `run_until_stopped` drives them.
-`launch_until_stopped` is the loop it shares with K4's route "tiles": it
-launches CHECK_EVERY iterations at a time and reads the per-sample
-`active` flags on the host between launches, so a solve ends at most
-CHECK_EVERY - 1 iterations after its last sample stopped (those launches
-return at once for inactive samples).  The loop is a span `solve`, each
+count, stream)`, which launches `count` iterations, each ending in
+common.cuh's `stop_finalize`, and `<partial_len>(B, ny, nx)`, the length
+of its scratch; `run_until_stopped` drives them.  `launch_until_stopped`
+is the loop it shares with K4's route "tiles" and K7's route "stream"
+(ops/brox.py): it launches CHECK_EVERY iterations at a time and reads
+the per-sample `active` flags on the host between launches, so a solve
+ends at most CHECK_EVERY - 1 iterations after its last sample stopped
+(those launches return at once for inactive samples).  The loop is a span `solve`, each
 read a span `host_read` counted in `host_reads`
 (tpuflow_torch.utils.trace).  `unsolved` is every card route's result
 before its first sweep (K7's route "resident" and K4's routes too).

@@ -11,8 +11,9 @@ them all.  Names say what they count:
                     K2 iterations and K7 sweeps (route "stream")
                     launched; on the CPU, the iterations K2's plain
                     version ran
-  launches.k1, launches.k3
-                    K1 and K3 launches
+  launches.k1, launches.k3, launches.k7
+                    K1 and K3 launches, and K7's route "stream" sweep
+                    launches (each of 1 or DEEP_K sweeps)
   calls.<wrapper>[.<route or group>]
                     calls of a kernel wrapper that launched its kernel
                     (`calls.tvl1_iterate_error`, `calls.hs_sor_error`,
